@@ -4,25 +4,37 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (nvcc into
-`build/`), then runs five phases, each printing one JSON line:
+`build/`, one nvcc per source, all started together), then runs these
+phases, each printing one JSON line:
 
-  1. kernels  - chunk_reduce's W-way and in-place pair forms against their
-                plain PyTorch versions on the card;
-  2. collectives - psum, ring_allreduce and optcc_allreduce at p=4 against
-                x.sum(0), and the straggler's link count (Lemma 5);
-  3. main path - `repro_torch.launch.train.main` on qwen3-1.7b at full width
-                through healthy -> degraded -> repaired steps, with the
-                kernels' launch counts read around that run;
-  4. reference - the same DP step on the smoke config, on the card and on
-                the CPU from the same parameters, healthy and degraded;
-  5. timing   - each kernel at the main path's shapes (CUDA events) beside
-                its memory-bound time, its plain version and one PyTorch
-                library call that computes the same function.
+  kernels      - chunk_reduce's W-way and in-place pair forms against their
+                 plain PyTorch versions on the card;
+  flash_kernel - flash_attention against its plain version: the JAX kernel
+                 tests' shapes (fp32/bf16, windows, non-causal), qwen3-1.7b's
+                 prefill and decode shapes in bf16 and fp32;
+  wkv_kernel   - wkv against its plain version: the JAX sweep, state
+                 chaining over two calls, the rwkv6-7b prefill shape and
+                 one-token decode steps chained from its final state;
+  collectives  - psum, ring_allreduce and optcc_allreduce at p=4 against
+                 x.sum(0), and the straggler's link count (Lemma 5);
+  main_path    - `repro_torch.launch.train.main` on qwen3-1.7b at full width
+                 through healthy -> degraded -> repaired steps;
+  serve_qwen3  - `repro_torch.launch.serve.main` on qwen3-1.7b at full width
+                 and depth (batch 8, prompt 2048, 64 new tokens);
+  serve_rwkv6  - the same on rwkv6-7b (batch 4, prompt 1024, 32 new tokens);
+  reference    - the DP step on the smoke config, card against CPU;
+  serve_reference - both smoke configs: the card's greedy tokens equal the
+                 CPU's, and prefill/decode logits equal `forward`'s;
+  timing       - each kernel at its path's shapes (CUDA events) beside its
+                 bound, its plain version and one PyTorch library call that
+                 computes the same function, where there is one.
 
-Then it prints the card's name and power limit (nvidia-smi), a `kernels`
-JSON line, and, as the last line, {"ok": true, "device": {...}}. Any failed
-check raises: the script exits nonzero and prints no result. It needs a
-CUDA card and the rest of the repository; it imports nothing of JAX.
+Each path (training, the two serve runs) is driven with the kernels' launch
+counts set to 0 just before it and read just after. Then it prints the
+card's name and power limit (nvidia-smi), a `kernels` JSON line, and, as the
+last line, {"ok": true, "device": {...}}. Any failed check raises: the
+script exits nonzero and prints no result. It needs a CUDA card and the rest
+of the repository; it imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -39,12 +51,37 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
 FP32_TOL = 1e-6                    # |kernel - plain| <= 1e-6 * (1 + |plain|)
+# flash_attention and wkv: |kernel - plain| <= tol * (1 + |plain|), the
+# limits of the JAX kernel tests (tests/test_kernels.py)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# flash_attention at qwen3-1.7b's serve shapes in bf16, where outputs are
+# ~0.05 and 2e-2 would be far too wide: kernel and plain version both work
+# in fp32 from the same bf16 inputs, so they may differ by the fp32 limit
+# plus one bf16 rounding of the output: 2e-5 (1 + |plain|) + ulp_bf16(plain)
+WKV_TOL = 1e-5
+SERVE_TOL = 2e-4                   # tests/test_serve_equivalence.py
 # a p-term fp32 sum in another association differs by at most
 # 2 (p-1) 2^-24 sum|x_i| (3.6e-7 sum|x_i| at p=4); the limit is 1e-6 sum|x_i|
 COLLECTIVE_TOL = 1e-6
-SOURCE = "src/repro_torch/kernels/chunk_reduce/csrc/chunk_reduce.cu"
-REPLACES = "src/repro/kernels/chunk_reduce/kernel.py:34"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "chunk_reduce": ("src/repro_torch/kernels/chunk_reduce/csrc/"
+                     "chunk_reduce.cu",
+                     "src/repro/kernels/chunk_reduce/kernel.py:34"),
+    "chunk_reduce_pairs": ("src/repro_torch/kernels/chunk_reduce/csrc/"
+                           "chunk_reduce.cu",
+                           "src/repro/kernels/chunk_reduce/kernel.py:34"),
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:68"),
+    "wkv": ("src/repro_torch/kernels/wkv/csrc/wkv.cu",
+            "src/repro/kernels/wkv/kernel.py:42"),
+}
+SERVE_QWEN3 = {"arch": "qwen3-1.7b", "batch": 8, "prompt_len": 2048,
+               "new_tokens": 64, "kernel": "flash_attention"}
+SERVE_RWKV6 = {"arch": "rwkv6-7b", "batch": 4, "prompt_len": 1024,
+               "new_tokens": 32, "kernel": "wkv"}
 MAIN_ARGV = ["--arch", "qwen3-1.7b", "--dp", "4", "--seq-len", "128",
              "--global-batch", "8", "--steps", "6", "--fail-at", "2",
              "--repair-at", "4", "--straggler", "1", "--log-every", "1"]
@@ -83,12 +120,18 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "ptxas": ptxas})
 
-    errs = {"chunk_reduce": 0.0, "chunk_reduce_pairs": 0.0}
+    errs = {name: 0.0 for name in KERNELS}
     phase_kernels(torch, dev, errs)
+    phase_flash_kernel(torch, dev, errs)
+    phase_wkv_kernel(torch, dev, errs)
     phase_collectives(torch, dev)
     n_grad, launches = phase_main_path(torch, dev)
+    launches.update(phase_serve(torch, dev, SERVE_QWEN3))
+    launches.update(phase_serve(torch, dev, SERVE_RWKV6))
     phase_reference(torch, dev)
+    phase_serve_reference(torch, dev)
     timings = phase_timing(torch, dev, n_grad, errs)
+    timings.update(phase_serve_timing(torch, dev, errs))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -96,10 +139,10 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     kernels = []
-    for name in ("chunk_reduce", "chunk_reduce_pairs"):
-        require(launches[name] > 0, f"{name} never launched on the main path")
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES, "launches": launches[name],
+    for name, (source, replaces) in KERNELS.items():
+        require(launches[name] > 0, f"{name} never launched on its path")
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], **timings[name]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -118,11 +161,15 @@ def _ulp_bf16(torch, x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
-def _compare(torch, got, want, what: str) -> float:
-    """Max |got - want|; raises past the limit of want's dtype: 1e-6 (times
-    1 + |want|) for fp32, one bf16 ulp for bf16 (both sides accumulate in
-    fp32, so only the final rounding may differ). Works in slices of 2^26
-    elements to bound the temporaries at the main path's sizes."""
+def _compare(torch, got, want, what: str, tol: float | None = None,
+             ulp: bool = False) -> float:
+    """Max |got - want| over finite outputs of the same shape and dtype;
+    raises past the limit: with `tol`, tol * (1 + |want|) (rtol = atol =
+    tol, the JAX kernel tests' form), plus one bf16 ulp of |want| if `ulp`;
+    without, that of want's dtype: 1e-6 (times 1 + |want|) for fp32, one
+    bf16 ulp for bf16 (both sides accumulate in fp32, so only the final
+    rounding may differ). Works in slices of 2^26 elements to bound the
+    temporaries at the paths' sizes."""
     require(got.shape == want.shape and got.dtype == want.dtype,
             f"{what}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
     err = 0.0
@@ -131,7 +178,10 @@ def _compare(torch, got, want, what: str) -> float:
         g, w = g.float(), w.float()
         require(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
         diff = (g - w).abs()
-        if want.dtype == torch.bfloat16:
+        if tol is not None:
+            limit = tol * (1.0 + w.abs())
+            bad = diff > (limit + _ulp_bf16(torch, w) if ulp else limit)
+        elif want.dtype == torch.bfloat16:
             bad = diff > _ulp_bf16(torch, w)
         else:
             bad = diff > FP32_TOL * (1.0 + w.abs())
@@ -172,7 +222,140 @@ def phase_kernels(torch, dev, errs) -> None:
                     errs["chunk_reduce_pairs"],
                     _compare(torch, buf, want, f"pairs {dtype} C={C}"))
                 cases += 1
-    emit({"phase": "kernels", "cases": cases, "max_abs_err": dict(errs)})
+    emit({"phase": "kernels", "cases": cases,
+          "max_abs_err": {k: errs[k] for k in ("chunk_reduce",
+                                               "chunk_reduce_pairs")}})
+
+
+# (B, Sq, Skv, H, KV, hd): tests/test_kernels.py's flash sweep
+FLASH_SWEEP = [(1, 32, 32, 2, 2, 16), (2, 64, 64, 4, 2, 32),
+               (1, 48, 48, 4, 1, 32), (2, 40, 40, 2, 2, 8)]
+
+
+def _qwen3_attn_shape():
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_QWEN3["arch"])
+    return (SERVE_QWEN3["batch"], SERVE_QWEN3["prompt_len"], cfg.n_heads,
+            cfg.n_kv_heads, cfg.hd)
+
+
+def phase_flash_kernel(torch, dev, errs) -> None:
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def check(q, k, v, what, full_width=False, **kw):
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        bf16 = q.dtype == torch.bfloat16
+        tol = FLASH_TOL["float32" if full_width or not bf16 else "bfloat16"]
+        err = _compare(torch, got, want, what, tol, ulp=full_width and bf16)
+        group = ("qwen3 " if full_width else "sweep ") + str(q.dtype)[6:]
+        by_group[group] = max(by_group.get(group, 0.0), err)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+
+    cases = 0
+    by_group = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Sq, Skv, H, KV, hd in FLASH_SWEEP:
+            q = rand((B, Sq, H, hd), dtype)
+            k, v = rand((B, Skv, KV, hd), dtype), rand((B, Skv, KV, hd), dtype)
+            check(q, k, v, f"sweep {dtype} {(B, Sq, H, KV, hd)}")
+            cases += 1
+        q = rand((2, 64, 4, 16), dtype)
+        k, v = rand((2, 64, 2, 16), dtype), rand((2, 64, 2, 16), dtype)
+        for window in (8, 24, 1000):
+            check(q, k, v, f"window {window} {dtype}", window=window)
+            cases += 1
+        check(q, k, v, f"non-causal {dtype}", causal=False)
+        cases += 1
+    # qwen3-1.7b's serve shapes (hd 128, GQA 16/8): the prefill, and decode
+    # steps over the cache at a few positions; bf16 as the model runs, and
+    # fp32, both held to the fp32 limit (bf16 plus one output rounding)
+    B, S, H, KV, hd = _qwen3_attn_shape()
+    positions = sorted({0, 1, min(1000, S - 1), S - 1})
+    for dtype in (torch.bfloat16, torch.float32):
+        q = rand((B, S, H, hd), dtype)
+        k, v = rand((B, S, KV, hd), dtype), rand((B, S, KV, hd), dtype)
+        check(q, k, v, f"qwen3 prefill {dtype}", full_width=True)
+        del q, k, v
+        kc = rand((B, S + SERVE_QWEN3["new_tokens"], KV, hd), dtype)
+        vc = rand((B, S + SERVE_QWEN3["new_tokens"], KV, hd), dtype)
+        q = rand((B, 1, H, hd), dtype)
+        for pos in positions:
+            check(q, kc, vc, f"qwen3 decode pos={pos} {dtype}",
+                  full_width=True, q_offset=pos, kv_len=pos + 1)
+        cases += 1 + len(positions)
+        del kc, vc, q
+        torch.cuda.empty_cache()
+    emit({"phase": "flash_kernel", "cases": cases,
+          "max_abs_err": errs["flash_attention"], "by_group": by_group,
+          "limits": {**FLASH_TOL, "qwen3 shapes": "2e-5 (1 + |plain|) + "
+                     "one bf16 ulp of |plain| in bf16"}})
+
+
+def _wkv_inputs(torch, gen, dev, B, S, H, hd):
+    r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=dev)
+               for _ in range(3))
+    w = 0.2 + 0.79 * torch.rand((B, S, H, hd), generator=gen, device=dev)
+    u = torch.randn((H, hd), generator=gen, device=dev)
+    return r, k, v, w, u
+
+
+def _rwkv6_wkv_shape():
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_RWKV6["arch"])
+    hd = cfg.ssm_state
+    return (SERVE_RWKV6["batch"], SERVE_RWKV6["prompt_len"],
+            cfg.d_model // hd, hd)
+
+
+def phase_wkv_kernel(torch, dev, errs) -> None:
+    from repro_torch.kernels.wkv import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def check(got, want, what):
+        torch.cuda.synchronize()
+        for g, w, part in zip(got, want, ("out", "state")):
+            errs["wkv"] = max(errs["wkv"], _compare(
+                torch, g, w, f"{what} {part}", WKV_TOL))
+
+    cases = 0
+    for shape in ((1, 16, 2, 8), (2, 33, 3, 16), (1, 64, 1, 32),
+                  _rwkv6_wkv_shape()):
+        x = _wkv_inputs(torch, gen, dev, *shape)
+        got = ops.wkv(*x)
+        check(got, ref.wkv_ref(*x), f"shape {shape}")
+        cases += 1
+    # rwkv6-7b's decode: one-token calls from the prefill's final state,
+    # each fed the state the previous call returned (kernel and plain
+    # version chained on their own)
+    B, _, H, hd = _rwkv6_wkv_shape()
+    st_got = st_want = got[1]
+    for step in range(4):
+        x1 = _wkv_inputs(torch, gen, dev, B, 1, H, hd)
+        got, want = ops.wkv(*x1, st_got), ref.wkv_ref(*x1, st_want)
+        check(got, want, f"rwkv6 decode step {step}")
+        st_got, st_want = got[1], want[1]
+        cases += 1
+    del x, x1, got, want, st_got, st_want
+    # two calls chained through the state equal one call and the plain
+    # version given the same initial state
+    B, S, H, hd = 1, 32, 2, 8
+    r, k, v, w, u = _wkv_inputs(torch, gen, dev, B, S, H, hd)
+    full = ops.wkv(r, k, v, w, u)
+    _, st1 = ops.wkv(*(t[:, :16].contiguous() for t in (r, k, v, w)), u)
+    second = [t[:, 16:].contiguous() for t in (r, k, v, w)]
+    out2 = ops.wkv(*second, u, st1)
+    check(out2, ref.wkv_ref(*second, u, st1), "chained, second call")
+    check(out2, (full[0][:, 16:].contiguous(), full[1]), "chained vs one")
+    cases += 2
+    torch.cuda.empty_cache()
+    emit({"phase": "wkv_kernel", "cases": cases, "max_abs_err": errs["wkv"],
+          "limit": WKV_TOL})
 
 
 def phase_collectives(torch, dev) -> None:
@@ -210,15 +393,16 @@ def _close(torch, got, x) -> float:
 
 
 def phase_main_path(torch, dev):
-    from repro_torch.kernels.chunk_reduce import kernel as ck
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.train import main as train_main
     torch.cuda.reset_peak_memory_stats()
-    ck.reset_launches()
+    reset_launch_counts()
     t = time.perf_counter()
     state, log = train_main(MAIN_ARGV)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
-    launches = dict(ck.launches)
+    counts = launch_counts()
+    launches = {k: counts[k] for k in ("chunk_reduce", "chunk_reduce_pairs")}
     n_grad = sum(v.numel() for v in state.params.values())
     depth = state.params["blocks/wq"].shape[0]
     for rec in log:
@@ -240,6 +424,36 @@ def phase_main_path(torch, dev):
     del state
     torch.cuda.empty_cache()
     return n_grad, launches
+
+
+def phase_serve(torch, dev, spec: dict) -> dict:
+    """`launch.serve.main` at full width and depth; returns the launches
+    of the path's kernel in that run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import main as serve_main
+    cfg = get_config(spec["arch"])
+    argv = ["--arch", spec["arch"], "--batch", str(spec["batch"]),
+            "--prompt-len", str(spec["prompt_len"]),
+            "--new-tokens", str(spec["new_tokens"]), "--seed", "0"]
+    reset_launch_counts()
+    tokens, log = serve_main(argv)
+    torch.cuda.synchronize()
+    launches = launch_counts()[spec["kernel"]]
+    require(tuple(tokens.shape) == (spec["batch"], spec["new_tokens"]),
+            f"{cfg.name}: tokens {tuple(tokens.shape)}")
+    require(0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size,
+            f"{cfg.name}: a token outside the vocabulary")
+    require(log["logits_finite"], f"{cfg.name}: non-finite logits")
+    # one launch per layer in the prefill and in every decode step
+    want = cfg.n_layers * spec["new_tokens"]
+    require(launches == want, f"{cfg.name}: {spec['kernel']} launched "
+            f"{launches} times, not once per layer and step ({want})")
+    emit({"phase": "serve_" + spec["arch"].split("-")[0], "argv": argv,
+          **log, "kernel_launches": launches})
+    del tokens
+    torch.cuda.empty_cache()
+    return {spec["kernel"]: launches}
 
 
 def phase_reference(torch, dev) -> None:
@@ -300,6 +514,50 @@ def phase_reference(torch, dev) -> None:
           "card_vs_cpu": {"loss_rel": cd[0], "params_abs": cd[1]}})
 
 
+def phase_serve_reference(torch, dev) -> None:
+    """Both smoke configs, the same parameters on the card and on the CPU:
+    greedy tokens equal, and on the card the prefill logits and every
+    decode step's logits equal `forward`'s at the same position."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, rwkv6, transformer
+    from repro_torch.train.serve import generate, pad_cache_to
+    out = {}
+    B, prompt_len, total = 2, 12, 24
+    for arch in ("qwen3-1.7b", "rwkv6-7b"):
+        cfg = get_config(arch, smoke=True)
+        model = build_model(cfg)
+        cpu_params = model.init(5, "cpu")
+        params = {k: v.to(dev) for k, v in cpu_params.items()}
+        toks = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (B, total))).long()
+        want = generate(model, cpu_params, toks[:, :prompt_len], 8)
+        got = generate(model, params, toks[:, :prompt_len].to(dev), 8)
+        require(torch.equal(got.cpu(), want), f"{cfg.name}: card tokens "
+                f"{got.tolist()} != CPU tokens {want.tolist()}")
+        toks = toks.to(dev)
+        with torch.no_grad():
+            if cfg.family == "rwkv6":
+                h, w = rwkv6.forward(cfg, params, toks), params["lm_head"]
+            else:
+                h = transformer.forward(cfg, params, toks)
+                w = transformer.unembed_matrix(cfg, params)
+            full = h.float() @ w.float()
+            logits, cache = model.prefill(params,
+                                          {"tokens": toks[:, :prompt_len]})
+            err = _compare(torch, logits, full[:, prompt_len - 1],
+                           f"{cfg.name} prefill vs forward", SERVE_TOL)
+            cache = pad_cache_to(cache, total)
+            for pos in range(prompt_len, total):
+                lg, cache = model.decode_step(params, cache,
+                                              toks[:, pos:pos + 1], pos)
+                err = max(err, _compare(
+                    torch, lg, full[:, pos],
+                    f"{cfg.name} decode vs forward at {pos}", SERVE_TOL))
+        out[cfg.name] = {"tokens_equal": True, "logits_max_abs_err": err}
+    emit({"phase": "serve_reference", "limit": SERVE_TOL, **out})
+
+
 # ----------------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------------
@@ -318,12 +576,12 @@ def _cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(bytes_moved: int, flops: int) -> dict:
+def _bound(bytes_moved: int, flops: int, peak: float = FP32_FLOPS) -> dict:
     """Least time for the work: the larger of its bytes (each input read
-    once, each output written once) at the memory rate and its fp32 adds
-    at the fp32 rate."""
+    once, each output written once) at the memory rate and its operations
+    at the card's peak for their type (fp32 by default)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -382,6 +640,111 @@ def phase_timing(torch, dev, n_grad: int, errs) -> dict:
     emit({"phase": "timing", **out})
     return {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")} for k, v in out.items()}
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _flash_timing(torch, q, k, v, out, *, q_offset: int, kv_len: int,
+                  causal: bool, iters: int) -> dict:
+    """flash_attention at one shape: kernel, plain version, SDPA (the
+    library call: GQA, causal only for the prefill) and the bound: q, the
+    first kv_len keys and values, the output; 4 hd flops per visible
+    (query, key) pair at the bf16 tensor-core rate."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, Sq, H, hd = q.shape
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    kk, vv = k[:, :kv_len], v[:, :kv_len]
+    qt, kt, vt = q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
+    pairs = sum(min(kv_len, q_offset + i + 1) if causal else kv_len
+                for i in range(Sq))
+    return {
+        "ms": _cuda_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
+                       iters),
+        "plain_ms": _cuda_ms(
+            torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3),
+        **_bound(_nbytes(q, kk, vv, out), 4 * hd * H * B * pairs,
+                 BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS),
+        "library_ms": _cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal and Sq > 1, enable_gqa=True),
+            iters),
+        "shape": {"q": list(q.shape), "kv": [B, kv_len] + list(k.shape[2:]),
+                  "q_offset": q_offset},
+        "dtype": str(q.dtype).removeprefix("torch.")}
+
+
+def _wkv_timing(torch, x, state0, out, iters: int) -> dict:
+    """wkv at one shape: kernel, plain version, no library call (no one
+    PyTorch call computes the recurrence), and the bound: r, k, v, w, u,
+    state0 in and out and the final state; 7 fp32 flops per state element
+    per token."""
+    from repro_torch.kernels.wkv import ops, ref
+    B, S, H, hd = x[0].shape
+    inputs = list(x) + ([state0] if state0 is not None else [])
+    return {
+        "ms": _cuda_ms(torch, lambda: ops.wkv(*x, state0), iters),
+        "plain_ms": _cuda_ms(torch, lambda: ref.wkv_ref(*x, state0), 1,
+                             warmup=1),
+        **_bound(_nbytes(*inputs, *out), 7 * hd * hd * B * H * S),
+        "library_ms": None,
+        "shape": [B, S, H, hd], "state0": state0 is not None,
+        "dtype": "float32"}
+
+
+def phase_serve_timing(torch, dev, errs) -> dict:
+    """flash_attention at qwen3-1.7b's prefill and mid-decode shapes, wkv
+    at rwkv6-7b's prefill and decode shapes. The `kernels` line carries
+    the prefill shapes."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.wkv import ops as wops
+    from repro_torch.kernels.wkv import ref as wref
+    gen = torch.Generator(device=dev).manual_seed(6)
+    B, S, H, KV, hd = _qwen3_attn_shape()
+    bf = torch.bfloat16
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    res = {}
+    q, k, v = rand((B, S, H, hd)), rand((B, S, KV, hd)), rand((B, S, KV, hd))
+    out = fops.flash_attention(q, k, v)
+    errs["flash_attention"] = max(errs["flash_attention"], _compare(
+        torch, out, fref.flash_attention_ref(q, k, v), "timed prefill",
+        FLASH_TOL["float32"], ulp=True))
+    res["flash_attention"] = _flash_timing(
+        torch, q, k, v, out, q_offset=0, kv_len=S, causal=True, iters=10)
+    del q, k, v, out
+    n_new = SERVE_QWEN3["new_tokens"]
+    kc, vc = rand((B, S + n_new, KV, hd)), rand((B, S + n_new, KV, hd))
+    q = rand((B, 1, H, hd))
+    pos = S + n_new // 2
+    out = fops.flash_attention(q, kc, vc, q_offset=pos, kv_len=pos + 1)
+    res["flash_attention_decode"] = _flash_timing(
+        torch, q, kc, vc, out, q_offset=pos, kv_len=pos + 1, causal=True,
+        iters=50)
+    del kc, vc, q, out
+    torch.cuda.empty_cache()
+
+    Bw, Sw, Hw, hdw = _rwkv6_wkv_shape()
+    x = _wkv_inputs(torch, gen, dev, Bw, Sw, Hw, hdw)
+    out = wops.wkv(*x)
+    for g, w, part in zip(out, wref.wkv_ref(*x), ("out", "state")):
+        errs["wkv"] = max(errs["wkv"], _compare(
+            torch, g, w, f"timed prefill {part}", WKV_TOL))
+    res["wkv"] = _wkv_timing(torch, x, None, out, iters=10)
+    x1 = _wkv_inputs(torch, gen, dev, Bw, 1, Hw, hdw)
+    state0 = out[1]
+    res["wkv_decode"] = _wkv_timing(torch, x1, state0, wops.wkv(*x1, state0),
+                                    iters=50)
+    del x, x1, out, state0
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_timing", **res})
+    return {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}
+            for k, v in res.items() if k in KERNELS}
 
 
 if __name__ == "__main__":

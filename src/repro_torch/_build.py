@@ -21,6 +21,8 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 # name -> source, relative to the package
 SOURCES = {
     "chunk_reduce": "kernels/chunk_reduce/csrc/chunk_reduce.cu",
+    "flash_attention": "kernels/flash_attention/csrc/flash_attention.cu",
+    "wkv": "kernels/wkv/csrc/wkv.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,12 +1,19 @@
-"""GQA attention for training: a direct quadratic path and a chunked
-online-softmax path (the port of `repro/models/attention.py`'s training
-functions). All softmax math is fp32; both are plain PyTorch, as the JAX
-package computes them in jnp outside any Pallas kernel.
+"""GQA attention (the port of `repro/models/attention.py`).
+
+Training: a direct quadratic path and a chunked online-softmax path, plain
+PyTorch, as the JAX package computes them in jnp outside any Pallas kernel
+(the flash kernel has no backward yet). Serving: `prefill_attention` and
+`decode_attention` go through the flash-attention op, which is the Hopper
+kernel for CUDA tensors and its plain version for CPU tensors. All softmax
+math is fp32.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 NEG_INF = -1e30
 
@@ -33,19 +40,10 @@ def _mask(iq: torch.Tensor, jk: torch.Tensor, causal: bool,
 
 def direct_attention(q, k, v, *, causal: bool = True, window: int = 0,
                      q_offset: int = 0) -> torch.Tensor:
-    """q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd) -> (B,Sq,H,hd)."""
-    B, Sq, H, hd = q.shape
-    Skv = k.shape[1]
-    k = _expand_kv(k, H)
-    v = _expand_kv(v, H)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-        / float(np.sqrt(np.float32(hd)))
-    iq = q_offset + torch.arange(Sq, device=q.device)
-    jk = torch.arange(Skv, device=q.device)
-    s = torch.where(_mask(iq, jk, causal, window)[None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
-    return out.to(q.dtype)
+    """q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd) -> (B,Sq,H,hd). The quadratic
+    path is the flash op's plain version, over every key."""
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
 
 
 def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -112,3 +110,22 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
                                 q_offset=q_offset)
     return chunked_attention(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
+
+
+# ----------------------------------------------------------------------------
+# serving: forward only, through the flash-attention kernel
+# ----------------------------------------------------------------------------
+
+def prefill_attention(q, k, v) -> torch.Tensor:
+    """Causal attention of a prompt over its own keys (prefill).
+    q: (B,S,H,hd); k,v: (B,S,KV,hd) -> (B,S,H,hd)."""
+    return flash_attention(q, k, v, causal=True)
+
+
+def decode_attention(q, k_cache, v_cache, pos: int) -> torch.Tensor:
+    """One-token attention against a (B, Smax, KV, hd) cache holding
+    entries [0, pos]: the flash op with Sq=1, q_offset=pos and kv_len=pos+1
+    (the mask jk <= pos of the JAX function), reading only the filled part
+    of the cache. q: (B,1,H,hd) -> (B,1,H,hd)."""
+    return flash_attention(q, k_cache, v_cache, causal=True, q_offset=pos,
+                           kv_len=pos + 1)

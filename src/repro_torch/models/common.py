@@ -10,6 +10,20 @@ import torch
 import torch.nn.functional as F
 
 
+BLOCKS = "blocks/"      # path prefix of the stacked (L, ...) layer weights
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def layer_params(params: dict, layer: int) -> dict:
+    """Layer `layer`'s slice of every stacked block weight, keyed by the
+    path after "blocks/"."""
+    return {k[len(BLOCKS):]: v[layer] for k, v in params.items()
+            if k.startswith(BLOCKS)}
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMS norm in fp32, scaled by (1 + weight), cast back to x's dtype."""

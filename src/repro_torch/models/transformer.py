@@ -1,5 +1,6 @@
-"""Dense decoder-only transformer, training path (the port of
-`repro/models/transformer.py` for qwen3-style dense models).
+"""Dense decoder-only transformer: training, prefill and decode (the port of
+`repro/models/transformer.py` for qwen3-style dense models, whose layers
+are all global).
 
 Parameters are one flat dict keyed by the JAX pytree's "/"-joined paths
 ("embed", "blocks/wq", "final_norm", ...) in the pytree's leaf order (sorted
@@ -11,16 +12,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (apply_rope, chunked_softmax_xent,
-                                       embed_tokens, init_dense, rms_norm,
-                                       swiglu)
-
-_PREFIX = "blocks/"
-
-
-def _dtype(name: str) -> torch.dtype:
-    return getattr(torch, name)
+from repro_torch.models.common import (BLOCKS, apply_rope,
+                                       chunked_softmax_xent, embed_tokens,
+                                       init_dense, layer_params, rms_norm,
+                                       swiglu, torch_dtype)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -53,7 +50,7 @@ def init_block_params(cfg: ModelConfig, generator: torch.Generator,
     hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     d, f = cfg.d_model, cfg.d_ff
     L = n_layers
-    dt = _dtype(cfg.param_dtype)
+    dt = torch_dtype(cfg.param_dtype)
     dev = generator.device
 
     def W(shape):
@@ -75,9 +72,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Random parameters drawn from `generator` on its device, with the
     JAX init's formulas (not its random numbers)."""
     check_supported(cfg)
-    dt = _dtype(cfg.param_dtype)
+    dt = torch_dtype(cfg.param_dtype)
     blocks = init_block_params(cfg, generator, cfg.n_layers)
-    params = {_PREFIX + k: v for k, v in blocks.items()}
+    params = {BLOCKS + k: v for k, v in blocks.items()}
     params["embed"] = init_dense((cfg.vocab_size, cfg.d_model), generator,
                                  scale=0.02, dtype=dt)
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
@@ -112,27 +109,31 @@ def _project_qkv(cfg, bp, x, positions):
     return q, k, v
 
 
-def dense_block(cfg: ModelConfig, x, bp, positions, causal: bool = True):
+def _block_tail(cfg: ModelConfig, x, bp, out):
+    """The layer after attention: output projection, residual, MLP."""
     B, S, _ = x.shape
-    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    q, k, v = _project_qkv(cfg, bp, h, positions)
-    out = attn.attention(q, k, v, causal=causal)
     x = x + out.reshape(B, S, -1) @ bp["wo"]
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
     return x + swiglu(h, bp["w_gate"], bp["w_up"], bp["w_down"])
+
+
+def dense_block(cfg: ModelConfig, x, bp, positions, causal: bool = True):
+    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(cfg, bp, h, positions)
+    return _block_tail(cfg, x, bp, attn.attention(q, k, v, causal=causal))
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             positions=None) -> torch.Tensor:
     """tokens: (B, S) -> hidden states (B, S, d)."""
     check_supported(cfg)
-    x = embed_tokens(params["embed"], tokens, _dtype(cfg.compute_dtype))
+    x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     # unbind once: autograd then stacks each weight's layer grads in one op
-    layers = {k[len(_PREFIX):]: v.unbind(0) for k, v in params.items()
-              if k.startswith(_PREFIX)}
+    layers = {k[len(BLOCKS):]: v.unbind(0) for k, v in params.items()
+              if k.startswith(BLOCKS)}
     for layer in range(cfg.n_layers):
         bp = {k: v[layer] for k, v in layers.items()}
         x = dense_block(cfg, x, bp, positions)
@@ -144,3 +145,65 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     h = forward(cfg, params, batch["tokens"], batch.get("positions"))
     return chunked_softmax_xent(h, unembed_matrix(cfg, params),
                                 batch["labels"], chunk=cfg.logits_chunk)
+
+
+# ----------------------------------------------------------------------------
+# serving: a full-length KV cache per (global) layer
+# ----------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: str | torch.device = "cuda") -> dict:
+    """k_glob / v_glob: (L, B, max_len, KV, hd) zeros in the compute dtype."""
+    check_supported(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    dt, dev = torch_dtype(cfg.compute_dtype), resolve_device(device)
+    return {"k_glob": torch.zeros(shape, dtype=dt, device=dev),
+            "v_glob": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def _last_logits(cfg: ModelConfig, params: dict, x) -> torch.Tensor:
+    """fp32 logits (B, V) of the last position of x (B, S, d)."""
+    x = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+    return x.float() @ unembed_matrix(cfg, params).float()
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                tokens: torch.Tensor, pos: int):
+    """One decode step. tokens: (B, 1); pos: the position of these tokens.
+
+    Writes each layer's k/v at `pos` of the cache in place (the counterpart
+    of JAX's dynamic_update_slice) and attends over entries [0, pos].
+    Returns (logits (B, V) fp32, cache)."""
+    check_supported(cfg)
+    x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
+    positions = torch.full(tokens.shape, pos, dtype=torch.int64,
+                           device=x.device)
+    kc, vc = cache["k_glob"], cache["v_glob"]
+    for layer in range(cfg.n_layers):
+        bp = layer_params(params, layer)
+        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        q, k, v = _project_qkv(cfg, bp, h, positions)
+        kc[layer, :, pos] = k[:, 0]
+        vc[layer, :, pos] = v[:, 0]
+        out = attn.decode_attention(q, kc[layer], vc[layer], pos)
+        x = _block_tail(cfg, x, bp, out)
+    return _last_logits(cfg, params, x), cache
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """Full-prompt forward that also fills the KV cache.
+
+    Returns (last-token logits (B, V) fp32, cache of length S)."""
+    check_supported(cfg)
+    x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    cache = init_cache(cfg, B, S, x.device)
+    for layer in range(cfg.n_layers):
+        bp = layer_params(params, layer)
+        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        q, k, v = _project_qkv(cfg, bp, h, positions)
+        cache["k_glob"][layer] = k
+        cache["v_glob"][layer] = v
+        x = _block_tail(cfg, x, bp, attn.prefill_attention(q, k, v))
+    return _last_logits(cfg, params, x), cache

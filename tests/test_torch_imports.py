@@ -26,7 +26,10 @@ import chip_smoke     # its main() runs only as a script
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
-assert "repro_torch.kernels.chunk_reduce.kernel" in names
+for mod in ("kernels.chunk_reduce.kernel", "kernels.flash_attention.kernel",
+            "kernels.wkv.kernel", "models.rwkv6", "train.serve",
+            "launch.serve", "configs.rwkv6_7b"):
+    assert "repro_torch." + mod in names, mod
 print("IMPORTED", len(names))
 """
 

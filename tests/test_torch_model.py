@@ -109,9 +109,10 @@ def test_convert_round_trip_is_bit_exact_bf16_included():
 
 
 def test_configs_of_later_slices_raise():
-    assert "qwen3-1.7b" in ARCH_IDS and len(ARCH_IDS) == 10
+    ported = ("qwen3-1.7b", "rwkv6-7b")
+    assert set(ported) <= set(ARCH_IDS) and len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
-        if arch != "qwen3-1.7b":
+        if arch not in ported:
             with pytest.raises(NotImplementedError, match="later|slice"):
                 get_config(arch)
     with pytest.raises(KeyError):

@@ -9,9 +9,15 @@ phases, each printing one JSON line:
 
   kernels      - chunk_reduce's W-way and in-place pair forms against their
                  plain PyTorch versions on the card;
-  flash_kernel - flash_attention against its plain version: the JAX kernel
-                 tests' shapes (fp32/bf16, windows, non-causal), qwen3-1.7b's
-                 prefill and decode shapes in bf16 and fp32;
+  flash_kernel - the three flash-attention kernels against their plain
+                 version, each case checked to take its route: the JAX
+                 kernel tests' shapes (fp32/bf16, windows, non-causal) and
+                 qwen3-1.7b's fp32 prefill on the CUDA-core flash_attention;
+                 bf16 prompts at hd 64 / 128 (windows, non-causal, ragged
+                 Sq, q_offset, rep 1 / 2 / 4) and qwen3-1.7b's bf16 prefill
+                 on flash_prefill; decode steps (kv_len 1 .. 2111, rep
+                 1 / 2 / 8, a window, 16 rows, fp32 and bf16, one split and
+                 many) and qwen3-1.7b's decode on flash_decode;
   wkv_kernel   - wkv against its plain version: the JAX sweep, state
                  chaining over two calls, the rwkv6-7b prefill shape and
                  one-token decode steps chained from its final state;
@@ -24,13 +30,16 @@ phases, each printing one JSON line:
   serve_rwkv6  - the same on rwkv6-7b (batch 4, prompt 1024, 32 new tokens);
   reference    - the DP step on the smoke config, card against CPU;
   serve_reference - both smoke configs: the card's greedy tokens equal the
-                 CPU's, and prefill/decode logits equal `forward`'s;
+                 CPU's (the fp32 qwen3 smoke prefill is the CUDA-core
+                 flash_attention's path), and prefill/decode logits equal
+                 `forward`'s;
   timing       - each kernel at its path's shapes (CUDA events) beside its
                  bound, its plain version and one PyTorch library call that
                  computes the same function, where there is one.
 
-Each path (training, the two serve runs) is driven with the kernels' launch
-counts set to 0 just before it and read just after. Then it prints the
+Each path (training, the two serve runs, the smoke configs' card run) is
+driven with the kernels' launch counts set to 0 just before it and read
+just after. Then it prints the
 card's name and power limit (nvidia-smi), a `kernels` JSON line, and, as the
 last line, {"ok": true, "device": {...}}. Any failed check raises: the
 script exits nonzero and prints no result. It needs a CUDA card and the rest
@@ -75,13 +84,20 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
                         "flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:68"),
+    "flash_prefill": ("src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_prefill.cu",
+                      "src/repro/kernels/flash_attention/kernel.py:68"),
+    "flash_decode": ("src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_decode.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:68"),
     "wkv": ("src/repro_torch/kernels/wkv/csrc/wkv.cu",
             "src/repro/kernels/wkv/kernel.py:42"),
 }
 SERVE_QWEN3 = {"arch": "qwen3-1.7b", "batch": 8, "prompt_len": 2048,
-               "new_tokens": 64, "kernel": "flash_attention"}
+               "new_tokens": 64}
 SERVE_RWKV6 = {"arch": "rwkv6-7b", "batch": 4, "prompt_len": 1024,
-               "new_tokens": 32, "kernel": "wkv"}
+               "new_tokens": 32}
+FLASH_ROUTES = ("flash_attention", "flash_prefill", "flash_decode")
 MAIN_ARGV = ["--arch", "qwen3-1.7b", "--dp", "4", "--seq-len", "128",
              "--global-batch", "8", "--steps", "6", "--fail-at", "2",
              "--repair-at", "4", "--straggler", "1", "--log-every", "1"]
@@ -129,7 +145,7 @@ def main() -> int:
     launches.update(phase_serve(torch, dev, SERVE_QWEN3))
     launches.update(phase_serve(torch, dev, SERVE_RWKV6))
     phase_reference(torch, dev)
-    phase_serve_reference(torch, dev)
+    launches.update(phase_serve_reference(torch, dev))
     timings = phase_timing(torch, dev, n_grad, errs)
     timings.update(phase_serve_timing(torch, dev, errs))
 
@@ -240,22 +256,28 @@ def _qwen3_attn_shape():
 
 
 def phase_flash_kernel(torch, dev, errs) -> None:
-    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
     gen = torch.Generator(device=dev).manual_seed(3)
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def check(q, k, v, what, full_width=False, **kw):
+    def check(q, k, v, what, route, tight=False, **kw):
+        """One call of the op against the plain version; it must have
+        launched exactly `route`. `tight`: the qwen3-shape limit."""
+        before = dict(kernel.launches)
         got = ops.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
+        ran = [n for n in FLASH_ROUTES if kernel.launches[n] != before[n]]
+        require(ran == [route], f"{what}: launched {ran}, not {route}")
         bf16 = q.dtype == torch.bfloat16
-        tol = FLASH_TOL["float32" if full_width or not bf16 else "bfloat16"]
-        err = _compare(torch, got, want, what, tol, ulp=full_width and bf16)
-        group = ("qwen3 " if full_width else "sweep ") + str(q.dtype)[6:]
+        tol = FLASH_TOL["float32" if tight or not bf16 else "bfloat16"]
+        err = _compare(torch, got, want, what, tol, ulp=tight and bf16)
+        group = (f"{route} {'qwen3-limit' if tight else 'sweep'} "
+                 f"{str(q.dtype)[6:]}")
         by_group[group] = max(by_group.get(group, 0.0), err)
-        errs["flash_attention"] = max(errs["flash_attention"], err)
+        errs[route] = max(errs[route], err)
 
     cases = 0
     by_group = {}
@@ -263,37 +285,103 @@ def phase_flash_kernel(torch, dev, errs) -> None:
         for B, Sq, Skv, H, KV, hd in FLASH_SWEEP:
             q = rand((B, Sq, H, hd), dtype)
             k, v = rand((B, Skv, KV, hd), dtype), rand((B, Skv, KV, hd), dtype)
-            check(q, k, v, f"sweep {dtype} {(B, Sq, H, KV, hd)}")
+            check(q, k, v, f"sweep {dtype} {(B, Sq, H, KV, hd)}",
+                  "flash_attention")
             cases += 1
         q = rand((2, 64, 4, 16), dtype)
         k, v = rand((2, 64, 2, 16), dtype), rand((2, 64, 2, 16), dtype)
         for window in (8, 24, 1000):
-            check(q, k, v, f"window {window} {dtype}", window=window)
+            check(q, k, v, f"window {window} {dtype}", "flash_attention",
+                  window=window)
             cases += 1
-        check(q, k, v, f"non-causal {dtype}", causal=False)
+        check(q, k, v, f"non-causal {dtype}", "flash_attention",
+              causal=False)
         cases += 1
+    # flash_prefill: bf16 prompts at hd 64 and 128, GQA rep 1 / 2 / 4, Sq
+    # not a multiple of its 64-query tile; causal, windows, non-causal, and
+    # a chunk of queries after a cached prefix (q_offset > 0, kv_len < Skv)
+    bf = torch.bfloat16
+    for hd in kernel.PREFILL_HEAD_DIMS:
+        for rep in (1, 2, 4):
+            KV = 2
+            q = rand((2, 200, KV * rep, hd), bf)
+            k, v = rand((2, 200, KV, hd), bf), rand((2, 200, KV, hd), bf)
+            for kw in ({}, {"window": 8}, {"window": 24}, {"window": 1000},
+                       {"causal": False}):
+                check(q, k, v, f"prefill hd {hd} rep {rep} {kw}",
+                      "flash_prefill", tight=True, **kw)
+            q = rand((2, 130, KV * rep, hd), bf)
+            k, v = rand((2, 340, KV, hd), bf), rand((2, 340, KV, hd), bf)
+            check(q, k, v, f"prefill hd {hd} rep {rep} q_offset 200",
+                  "flash_prefill", tight=True, q_offset=200, kv_len=330)
+            cases += 6
+    # flash_decode: one query over a cache of 2112 positions holding kv_len
+    # keys, for kv_len around its 64-key tile and up to qwen3's last decode
+    # step, rep 1 / 2 / 8, in both dtypes; a window; 16 rows (8 queries of a
+    # speculative chunk, rep 2) with their own causal limits. The split
+    # count runs from 1 (kv_len <= 64) to many.
+    splits = set()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in (64, 128):
+            for rep in (1, 2, 8):
+                B, KV = 4, 2
+                kc = rand((B, 2112, KV, hd), dtype)
+                vc = rand((B, 2112, KV, hd), dtype)
+                q = rand((B, 1, KV * rep, hd), dtype)
+                for kv_len in (1, 63, 64, 65, 2081, 2111):
+                    check(q, kc, vc, f"decode {dtype} hd {hd} rep {rep} "
+                          f"kv_len {kv_len}", "flash_decode",
+                          tight=True, q_offset=kv_len - 1,
+                          kv_len=kv_len)
+                    splits.add(kernel.decode_splits(kv_len, B * KV, sms))
+                    cases += 1
+        check(q, kc, vc, f"decode {dtype} window 100", "flash_decode",
+              tight=True, q_offset=2080, kv_len=2081, window=100)
+        q = rand((B, 8, KV * 2, 128), dtype)
+        check(q, kc, vc, f"decode {dtype} 8 queries rep 2", "flash_decode",
+              tight=True, q_offset=2000, kv_len=2008)
+        check(q, kc, vc, f"decode {dtype} 8 queries rep 2 window 3",
+              "flash_decode", tight=True, q_offset=2000, kv_len=2008,
+              window=3)
+        # the same with one key per split (10 splits): each row sees no key
+        # in most splits, whose partials the combine must skip
+        min_keys, kernel.DECODE_MIN_KEYS = kernel.DECODE_MIN_KEYS, 1
+        try:
+            splits.add(kernel.decode_splits(10, B * KV, sms))
+            check(q, kc, vc, f"decode {dtype} 8 queries window 3, 10 splits",
+                  "flash_decode", tight=True, q_offset=2000,
+                  kv_len=2008, window=3)
+        finally:
+            kernel.DECODE_MIN_KEYS = min_keys
+        cases += 4
+    require(min(splits) == 1 and max(splits) > 1,
+            f"decode split counts {sorted(splits)}: want 1 and many")
     # qwen3-1.7b's serve shapes (hd 128, GQA 16/8): the prefill, and decode
     # steps over the cache at a few positions; bf16 as the model runs, and
     # fp32, both held to the fp32 limit (bf16 plus one output rounding)
     B, S, H, KV, hd = _qwen3_attn_shape()
     positions = sorted({0, 1, min(1000, S - 1), S - 1})
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, route in ((torch.bfloat16, "flash_prefill"),
+                         (torch.float32, "flash_attention")):
         q = rand((B, S, H, hd), dtype)
         k, v = rand((B, S, KV, hd), dtype), rand((B, S, KV, hd), dtype)
-        check(q, k, v, f"qwen3 prefill {dtype}", full_width=True)
+        check(q, k, v, f"qwen3 prefill {dtype}", route, tight=True)
         del q, k, v
         kc = rand((B, S + SERVE_QWEN3["new_tokens"], KV, hd), dtype)
         vc = rand((B, S + SERVE_QWEN3["new_tokens"], KV, hd), dtype)
         q = rand((B, 1, H, hd), dtype)
         for pos in positions:
             check(q, kc, vc, f"qwen3 decode pos={pos} {dtype}",
-                  full_width=True, q_offset=pos, kv_len=pos + 1)
+                  "flash_decode", tight=True, q_offset=pos,
+                  kv_len=pos + 1)
         cases += 1 + len(positions)
         del kc, vc, q
         torch.cuda.empty_cache()
     emit({"phase": "flash_kernel", "cases": cases,
-          "max_abs_err": errs["flash_attention"], "by_group": by_group,
-          "limits": {**FLASH_TOL, "qwen3 shapes": "2e-5 (1 + |plain|) + "
+          "max_abs_err": {r: errs[r] for r in FLASH_ROUTES},
+          "by_group": by_group, "decode_splits": sorted(splits),
+          "limits": {**FLASH_TOL, "qwen3-limit": "2e-5 (1 + |plain|) + "
                      "one bf16 ulp of |plain| in bf16"}})
 
 
@@ -426,9 +514,20 @@ def phase_main_path(torch, dev):
     return n_grad, launches
 
 
+def _serve_kernels(cfg, n_new: int) -> dict:
+    """The launches a generate run of n_new tokens must make: one per layer
+    in the prefill and in each of the n_new - 1 decode steps; for qwen3 in
+    bf16 at hd 128, the prefill on flash_prefill, the decode steps on
+    flash_decode and none on the CUDA-core flash_attention."""
+    if cfg.family == "rwkv6":
+        return {"wkv": cfg.n_layers * n_new}
+    return {"flash_attention": 0, "flash_prefill": cfg.n_layers,
+            "flash_decode": cfg.n_layers * (n_new - 1)}
+
+
 def phase_serve(torch, dev, spec: dict) -> dict:
     """`launch.serve.main` at full width and depth; returns the launches
-    of the path's kernel in that run."""
+    of the path's kernels in that run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import main as serve_main
@@ -439,21 +538,21 @@ def phase_serve(torch, dev, spec: dict) -> dict:
     reset_launch_counts()
     tokens, log = serve_main(argv)
     torch.cuda.synchronize()
-    launches = launch_counts()[spec["kernel"]]
+    counts = launch_counts()
+    want = _serve_kernels(cfg, spec["new_tokens"])
+    launches = {k: counts[k] for k in want}
     require(tuple(tokens.shape) == (spec["batch"], spec["new_tokens"]),
             f"{cfg.name}: tokens {tuple(tokens.shape)}")
     require(0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size,
             f"{cfg.name}: a token outside the vocabulary")
     require(log["logits_finite"], f"{cfg.name}: non-finite logits")
-    # one launch per layer in the prefill and in every decode step
-    want = cfg.n_layers * spec["new_tokens"]
-    require(launches == want, f"{cfg.name}: {spec['kernel']} launched "
-            f"{launches} times, not once per layer and step ({want})")
+    require(launches == want, f"{cfg.name}: launches {launches}, not "
+            f"{want} (one per layer per prefill and decode step)")
     emit({"phase": "serve_" + spec["arch"].split("-")[0], "argv": argv,
           **log, "kernel_launches": launches})
     del tokens
     torch.cuda.empty_cache()
-    return {spec["kernel"]: launches}
+    return launches
 
 
 def phase_reference(torch, dev) -> None:
@@ -514,12 +613,15 @@ def phase_reference(torch, dev) -> None:
           "card_vs_cpu": {"loss_rel": cd[0], "params_abs": cd[1]}})
 
 
-def phase_serve_reference(torch, dev) -> None:
+def phase_serve_reference(torch, dev) -> dict:
     """Both smoke configs, the same parameters on the card and on the CPU:
     greedy tokens equal, and on the card the prefill logits and every
-    decode step's logits equal `forward`'s at the same position."""
+    decode step's logits equal `forward`'s at the same position. The fp32
+    qwen3 smoke prefill (hd 16) is the CUDA-core flash_attention's path:
+    returns its launches in the card's generate run."""
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model, rwkv6, transformer
     from repro_torch.train.serve import generate, pad_cache_to
     out = {}
@@ -532,9 +634,19 @@ def phase_serve_reference(torch, dev) -> None:
         toks = torch.from_numpy(np.random.default_rng(5).integers(
             0, cfg.vocab_size, (B, total))).long()
         want = generate(model, cpu_params, toks[:, :prompt_len], 8)
+        reset_launch_counts()
         got = generate(model, params, toks[:, :prompt_len].to(dev), 8)
+        torch.cuda.synchronize()
+        counts = launch_counts()
         require(torch.equal(got.cpu(), want), f"{cfg.name}: card tokens "
                 f"{got.tolist()} != CPU tokens {want.tolist()}")
+        if cfg.family == "dense":
+            # fp32 prompt, 24 rows per kv head: the CUDA-core kernel
+            n_cuda_core = counts["flash_attention"]
+            expect = {"flash_attention": cfg.n_layers, "flash_prefill": 0,
+                      "flash_decode": cfg.n_layers * 7}
+            require({k: counts[k] for k in expect} == expect,
+                    f"{cfg.name}: launches {counts}, not {expect}")
         toks = toks.to(dev)
         with torch.no_grad():
             if cfg.family == "rwkv6":
@@ -555,7 +667,9 @@ def phase_serve_reference(torch, dev) -> None:
                     torch, lg, full[:, pos],
                     f"{cfg.name} decode vs forward at {pos}", SERVE_TOL))
         out[cfg.name] = {"tokens_equal": True, "logits_max_abs_err": err}
-    emit({"phase": "serve_reference", "limit": SERVE_TOL, **out})
+    emit({"phase": "serve_reference", "limit": SERVE_TOL, **out,
+          "flash_attention_launches": n_cuda_core})
+    return {"flash_attention": n_cuda_core}
 
 
 # ----------------------------------------------------------------------------
@@ -646,14 +760,17 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _flash_timing(torch, q, k, v, out, *, q_offset: int, kv_len: int,
-                  causal: bool, iters: int) -> dict:
-    """flash_attention at one shape: kernel, plain version, SDPA (the
+def _flash_timing(torch, q, k, v, out, *, route: str, q_offset: int,
+                  kv_len: int, causal: bool, iters: int) -> dict:
+    """One flash route at one shape: kernel, plain version, SDPA (the
     library call: GQA, causal only for the prefill) and the bound: q, the
     first kv_len keys and values, the output; 4 hd flops per visible
-    (query, key) pair at the bf16 tensor-core rate."""
+    (query, key) pair at the tensor-core bf16 rate for bf16 inputs and the
+    fp32 rate for fp32 ones."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    require(kernel.pick_route(q, k, v) == route,
+            f"timing: {route} is not the route of {tuple(q.shape)}")
     B, Sq, H, hd = q.shape
     kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
     kk, vv = k[:, :kv_len], v[:, :kv_len]
@@ -694,37 +811,47 @@ def _wkv_timing(torch, x, state0, out, iters: int) -> dict:
 
 
 def phase_serve_timing(torch, dev, errs) -> dict:
-    """flash_attention at qwen3-1.7b's prefill and mid-decode shapes, wkv
-    at rwkv6-7b's prefill and decode shapes. The `kernels` line carries
-    the prefill shapes."""
+    """The three flash routes at qwen3-1.7b's shapes: flash_prefill at the
+    bf16 prefill, flash_decode at a mid-decode step, the CUDA-core
+    flash_attention at the same prefill in fp32 (its route: fp32 prompts);
+    wkv at rwkv6-7b's prefill and decode shapes. The `kernels` line takes
+    flash_decode's decode shape and wkv's prefill shape."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.wkv import ops as wops
     from repro_torch.kernels.wkv import ref as wref
     gen = torch.Generator(device=dev).manual_seed(6)
     B, S, H, KV, hd = _qwen3_attn_shape()
-    bf = torch.bfloat16
 
-    def rand(shape):
-        return torch.randn(shape, generator=gen, device=dev).to(bf)
+    def rand(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     res = {}
-    q, k, v = rand((B, S, H, hd)), rand((B, S, KV, hd)), rand((B, S, KV, hd))
-    out = fops.flash_attention(q, k, v)
-    errs["flash_attention"] = max(errs["flash_attention"], _compare(
-        torch, out, fref.flash_attention_ref(q, k, v), "timed prefill",
-        FLASH_TOL["float32"], ulp=True))
-    res["flash_attention"] = _flash_timing(
-        torch, q, k, v, out, q_offset=0, kv_len=S, causal=True, iters=10)
-    del q, k, v, out
+    for dtype, route, iters in ((torch.bfloat16, "flash_prefill", 20),
+                                (torch.float32, "flash_attention", 5)):
+        q, k, v = (rand((B, S, H, hd), dtype), rand((B, S, KV, hd), dtype),
+                   rand((B, S, KV, hd), dtype))
+        out = fops.flash_attention(q, k, v)
+        errs[route] = max(errs[route], _compare(
+            torch, out, fref.flash_attention_ref(q, k, v),
+            f"timed prefill {route}", FLASH_TOL["float32"], ulp=True))
+        res[route] = _flash_timing(torch, q, k, v, out, route=route,
+                                   q_offset=0, kv_len=S, causal=True,
+                                   iters=iters)
+        del q, k, v, out
+        torch.cuda.empty_cache()
     n_new = SERVE_QWEN3["new_tokens"]
     kc, vc = rand((B, S + n_new, KV, hd)), rand((B, S + n_new, KV, hd))
     q = rand((B, 1, H, hd))
     pos = S + n_new // 2
     out = fops.flash_attention(q, kc, vc, q_offset=pos, kv_len=pos + 1)
-    res["flash_attention_decode"] = _flash_timing(
-        torch, q, kc, vc, out, q_offset=pos, kv_len=pos + 1, causal=True,
-        iters=50)
+    errs["flash_decode"] = max(errs["flash_decode"], _compare(
+        torch, out, fref.flash_attention_ref(q, kc, vc, q_offset=pos,
+                                             kv_len=pos + 1),
+        "timed decode", FLASH_TOL["float32"], ulp=True))
+    res["flash_decode"] = _flash_timing(
+        torch, q, kc, vc, out, route="flash_decode", q_offset=pos,
+        kv_len=pos + 1, causal=True, iters=200)
     del kc, vc, q, out
     torch.cuda.empty_cache()
 

@@ -22,6 +22,8 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 SOURCES = {
     "chunk_reduce": "kernels/chunk_reduce/csrc/chunk_reduce.cu",
     "flash_attention": "kernels/flash_attention/csrc/flash_attention.cu",
+    "flash_prefill": "kernels/flash_attention/csrc/flash_prefill.cu",
+    "flash_decode": "kernels/flash_attention/csrc/flash_decode.cu",
     "wkv": "kernels/wkv/csrc/wkv.cu",
 }
 

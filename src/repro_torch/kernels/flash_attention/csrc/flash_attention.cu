@@ -23,17 +23,22 @@
 // g * rep + r % rep (rep = H / KV), so the rep heads that share a kv head share
 // every K/V tile the CTA stages.
 //
-// What bounds it on an H100: at prefill (Sq = Skv = 2048, hd 128) the
-// operations: 4 hd flops per visible (query, key) pair, against a few bytes
-// per pair. At decode (Sq = 1) the bytes of the KV cache. This first version
-// is simple: fp32 FMAs on the CUDA cores (67 TFLOP/s, not the tensor cores'
-// 989 for bf16). K/V blocks of 64 keys are staged in shared memory as fp32
-// (K transposed); each of 256 threads owns a RT x 4 tile of the score block
-// and a RT x hd/16 tile of the accumulator, so each shared-memory load feeds
-// several FMAs. KV blocks wholly past the causal limit (or before the window)
-// are skipped. For a decode step (Sq * rep <= 16) the row block shrinks to 16
-// slots (RT = 1). wgmma, TMA and a split over the KV axis for decode are later
-// work.
+// Where it runs: the route of kernel.py sends bf16 prompts at hd 64 / 128 to
+// flash_prefill.cu (tensor cores) and every call with at most 16 rows per kv
+// head to flash_decode.cu (split over the keys). This kernel takes the rest:
+// prompts in fp32, prompts at the small head dims, and strides that are not
+// multiples of 16 bytes.
+//
+// What bounds it on an H100: for a prompt, the operations: 4 hd flops per
+// visible (query, key) pair, against a few bytes per pair. It runs them as
+// fp32 FMAs on the CUDA cores (67 TFLOP/s peak; fp32 inputs have no
+// tensor-core route that keeps fp32 products). K/V blocks of 64 keys are
+// staged in shared memory as fp32 (K transposed); each of 256 threads owns a
+// RT x 4 tile of the score block and a RT x hd/16 tile of the accumulator,
+// so each shared-memory load feeds several FMAs. KV blocks wholly past the
+// causal limit (or before the window) are skipped. With at most 16 row
+// slots (only reached through an unaligned stride) the row block shrinks to
+// 16 slots (RT = 1).
 //
 // Plain C interface (bound with ctypes); the entry point returns the
 // cudaError_t of its launch, 0 on success. Launches go on the caller's stream

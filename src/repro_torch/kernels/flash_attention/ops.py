@@ -1,4 +1,5 @@
-"""Public flash_attention op: the CUDA kernel for CUDA tensors, the plain
+"""Public flash_attention op: a CUDA kernel for CUDA tensors (which of the
+three, `kernel.flash_attention_cuda` decides by `kernel.route`), the plain
 PyTorch version for CPU tensors, an error for anything else.
 
 Forward only: there is no backward kernel yet, so an input that requires

@@ -8,7 +8,9 @@ Builds the port's CUDA kernels from the sources in this checkout (nvcc into
 phases, each printing one JSON line:
 
   kernels      - chunk_reduce's W-way and in-place pair forms against their
-                 plain PyTorch versions on the card;
+                 plain PyTorch versions on the card; the pair form to the
+                 bit, at its edges (rows shorter than a vector, heads and
+                 tails, one tile +- 1, views off 16-byte alignment);
   flash_kernel - the three flash-attention kernels against their plain
                  version, each case checked to take its route: the JAX
                  kernel tests' shapes (fp32/bf16, windows, non-causal) and
@@ -18,9 +20,11 @@ phases, each printing one JSON line:
                  on flash_prefill; decode steps (kv_len 1 .. 2111, rep
                  1 / 2 / 8, a window, 16 rows, fp32 and bf16, one split and
                  many) and qwen3-1.7b's decode on flash_decode;
-  wkv_kernel   - wkv against its plain version: the JAX sweep, state
-                 chaining over two calls, the rwkv6-7b prefill shape and
-                 one-token decode steps chained from its final state;
+  wkv_kernel   - wkv against its plain version: every head dim at S 1, 15,
+                 16, 17, 33 and 1024 with and without an initial state, the JAX
+                 sweep, state chaining over two calls, the rwkv6-7b prefill
+                 shape and one-token decode steps chained from its final
+                 state; it reports which cases were bit-equal;
   collectives  - psum, ring_allreduce and optcc_allreduce at p=4 against
                  x.sum(0), and the straggler's link count (Lemma 5);
   main_path    - `repro_torch.launch.train.main` on qwen3-1.7b at full width
@@ -33,9 +37,12 @@ phases, each printing one JSON line:
                  CPU's (the fp32 qwen3 smoke prefill is the CUDA-core
                  flash_attention's path), and prefill/decode logits equal
                  `forward`'s;
-  timing       - each kernel at its path's shapes (CUDA events) beside its
-                 bound, its plain version and one PyTorch library call that
-                 computes the same function, where there is one.
+  timing       - each kernel at its path's shapes (CUDA events, host
+                 included, and `device_ms`: the kernels' own time from
+                 torch.profiler) beside its bound, its plain version and one
+                 PyTorch library call that computes the same function, where
+                 there is one; wkv's decode step also with its inputs cold
+                 in L2, rotating over 16 sets of inputs and states.
 
 Each path (training, the two serve runs, the smoke configs' card run) is
 driven with the kernels' launch counts set to 0 just before it and read
@@ -98,6 +105,9 @@ SERVE_QWEN3 = {"arch": "qwen3-1.7b", "batch": 8, "prompt_len": 2048,
 SERVE_RWKV6 = {"arch": "rwkv6-7b", "batch": 4, "prompt_len": 1024,
                "new_tokens": 32}
 FLASH_ROUTES = ("flash_attention", "flash_prefill", "flash_decode")
+# the timing fields of each kernel in the `kernels` line
+LINE_FIELDS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
 MAIN_ARGV = ["--arch", "qwen3-1.7b", "--dp", "4", "--seq-len", "128",
              "--global-batch", "8", "--steps", "6", "--fail-at", "2",
              "--repair-at", "4", "--straggler", "1", "--log-every", "1"]
@@ -131,10 +141,15 @@ def main() -> int:
 
     t = time.perf_counter()
     logs = _build.build_all()
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: _ptxas_report(log) for name, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "ptxas": ptxas})
+    # the pair form and wkv keep their operands in registers by design: a
+    # spill there is a fault (a library built before this run has no report)
+    for entry in ptxas.get("chunk_reduce", []) + ptxas.get("wkv", []):
+        if entry["kernel"].startswith(("chunk_reduce_pairs", "wkv")):
+            require(entry["spill_bytes"] == 0,
+                    f"{entry['kernel']} spills {entry['spill_bytes']} bytes")
 
     errs = {name: 0.0 for name in KERNELS}
     phase_kernels(torch, dev, errs)
@@ -165,6 +180,36 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _ptxas_report(log: str) -> list:
+    """One entry per kernel of nvcc's `-Xptxas -v` output: its name (the
+    mangled name cut to the function and its template arguments),
+    registers, spill bytes (stores + loads) and static shared memory."""
+    import re
+    out, name, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            short = re.search(r"\d+((?:chunk_reduce|flash|wkv)\w*?)"
+                              r"(I\w*?E)?Ev", name)
+            if short:
+                args = re.findall(r"Li(\d+)E|(f)(?=[EL])|(bfloat16)",
+                                  short.group(2) or "")
+                name = f"{short.group(1)}<{','.join(map(''.join, args))}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append({"kernel": name, "registers": int(m.group(1)),
+                        "spill_bytes": spill,
+                        "smem": int(smem.group(1)) if smem else 0})
+            name, spill = None, 0
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -208,7 +253,7 @@ def _compare(torch, got, want, what: str, tol: float | None = None,
 
 
 def phase_kernels(torch, dev, errs) -> None:
-    from repro_torch.kernels.chunk_reduce import ops, ref
+    from repro_torch.kernels.chunk_reduce import kernel, ops, ref
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -225,22 +270,36 @@ def phase_kernels(torch, dev, errs) -> None:
                         f"W={W} N={N}"))
                     cases += 1
         # pair form: the three moves of one reduce-scatter hop at p=4
-        # (rows member*3 + chunk), plus a fold of a whole member row
-        for C in (128, 1000, 5001, 2 ** 22 + 1):
-            for dst, src in (([5, 9, 1], [4, 8, 0]), ([3, 4, 5], [0, 1, 2])):
-                buf = torch.randn((12, C), generator=gen, device=dev,
-                                  dtype=torch.float32).to(dtype)
-                want = buf.clone()
-                ref.chunk_reduce_pairs_ref_(want, dst, src)
-                ops.chunk_reduce_pairs_(buf, dst, src)
-                torch.cuda.synchronize()
-                errs["chunk_reduce_pairs"] = max(
-                    errs["chunk_reduce_pairs"],
-                    _compare(torch, buf, want, f"pairs {dtype} C={C}"))
-                cases += 1
+        # (rows member*3 + chunk), plus a fold of a whole member row; rows
+        # shorter than a vector, lengths that leave a head or tail in every
+        # row, one tile +- 1, and views that start 1 or 3 elements past a
+        # 16-byte boundary. Kernel and plain version add in fp32 and round
+        # once, so they must agree to the bit.
+        tile = kernel.PAIR_TILE_BYTES // torch.empty(
+            (), dtype=dtype).element_size()
+        for C in (1, 3, 4, 5, 128, 1000, 4097, 5001, tile - 1, tile,
+                  tile + 1, 2 ** 22 + 1):
+            for shift in (0, 1, 3):
+                store = torch.randn(12 * C + shift, generator=gen,
+                                    device=dev).to(dtype)
+                buf = store[shift:].view(12, C)
+                for dst, src in (([5, 9, 1], [4, 8, 0]),
+                                 ([3, 4, 5], [0, 1, 2])):
+                    want = buf.clone()
+                    ref.chunk_reduce_pairs_ref_(want, dst, src)
+                    ops.chunk_reduce_pairs_(buf, dst, src)
+                    torch.cuda.synchronize()
+                    what = f"pairs {dtype} C={C} shift={shift} dst={dst}"
+                    errs["chunk_reduce_pairs"] = max(
+                        errs["chunk_reduce_pairs"],
+                        _compare(torch, buf, want, what))
+                    require(torch.equal(buf, want), f"{what}: not bit-equal "
+                            "to the plain version")
+                    cases += 1
     emit({"phase": "kernels", "cases": cases,
           "max_abs_err": {k: errs[k] for k in ("chunk_reduce",
-                                               "chunk_reduce_pairs")}})
+                                               "chunk_reduce_pairs")},
+          "pairs_bit_equal": True})
 
 
 # (B, Sq, Skv, H, KV, hd): tests/test_kernels.py's flash sweep
@@ -402,16 +461,28 @@ def _rwkv6_wkv_shape():
 
 
 def phase_wkv_kernel(torch, dev, errs) -> None:
-    from repro_torch.kernels.wkv import ops, ref
+    from repro_torch.kernels.wkv import kernel, ops, ref
     gen = torch.Generator(device=dev).manual_seed(4)
+    bit_equal = {}
 
     def check(got, want, what):
         torch.cuda.synchronize()
         for g, w, part in zip(got, want, ("out", "state")):
             errs["wkv"] = max(errs["wkv"], _compare(
                 torch, g, w, f"{what} {part}", WKV_TOL))
+        bit_equal[what] = all(torch.equal(g, w) for g, w in zip(got, want))
 
     cases = 0
+    # every head dim: one token, prompts around 16 tokens, past one staged
+    # chunk (33 > WKV_CHUNK) and long; from a zero and from a random state
+    for hd in kernel.HEAD_DIMS:
+        for S in (1, 15, 16, 17, 33, 1024):
+            x = _wkv_inputs(torch, gen, dev, 2, S, 3, hd)
+            s0 = torch.randn((2, 3, hd, hd), generator=gen, device=dev)
+            for state0 in (None, s0):
+                check(ops.wkv(*x, state0), ref.wkv_ref(*x, state0),
+                      f"hd {hd} S {S} state0 {state0 is not None}")
+                cases += 1
     for shape in ((1, 16, 2, 8), (2, 33, 3, 16), (1, 64, 1, 32),
                   _rwkv6_wkv_shape()):
         x = _wkv_inputs(torch, gen, dev, *shape)
@@ -443,7 +514,8 @@ def phase_wkv_kernel(torch, dev, errs) -> None:
     cases += 2
     torch.cuda.empty_cache()
     emit({"phase": "wkv_kernel", "cases": cases, "max_abs_err": errs["wkv"],
-          "limit": WKV_TOL})
+          "limit": WKV_TOL, "all_bit_equal": all(bit_equal.values()),
+          "bit_equal": bit_equal})
 
 
 def phase_collectives(torch, dev) -> None:
@@ -690,6 +762,33 @@ def _cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+# name -> what the profiler calls its kernels (each name is a substring)
+KERNEL_SYMBOLS = {"chunk_reduce": "chunk_reduce_kernel",
+                  "chunk_reduce_pairs": "chunk_reduce_pairs_",
+                  "flash_attention": "flash_fwd_kernel",
+                  "flash_prefill": "flash_prefill_kernel",
+                  "flash_decode": "flash_decode_",
+                  "wkv": "wkv_kernel"}
+
+
+def _device_ms(torch, fn, iters: int, kernel: str) -> float:
+    """The device time per call of `kernel`'s CUDA kernels, from
+    torch.profiler's record of `iters` calls after one warm-up call: the
+    kernels alone, without the host's work between launches."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if KERNEL_SYMBOLS[kernel] in e.key)
+    require(us > 0, f"the profiler recorded no device time for {kernel}")
+    return us / iters / 1e3
+
+
 def _bound(bytes_moved: int, flops: int, peak: float = FP32_FLOPS) -> dict:
     """Least time for the work: the larger of its bytes (each input read
     once, each output written once) at the memory rate and its operations
@@ -717,6 +816,8 @@ def phase_timing(torch, dev, n_grad: int, errs) -> dict:
     del got
     out["chunk_reduce"] = {
         "ms": _cuda_ms(torch, lambda: ops.chunk_reduce(parts), 10),
+        "device_ms": _device_ms(torch, lambda: ops.chunk_reduce(parts), 5,
+                                "chunk_reduce"),
         "plain_ms": _cuda_ms(torch, lambda: ref.chunk_reduce_ref(parts), 5),
         **_bound((p + 1) * n_grad * parts.element_size(), (p - 1) * n_grad),
         "library_ms": _cuda_ms(torch, lambda: parts.sum(0), 10),
@@ -734,6 +835,8 @@ def phase_timing(torch, dev, n_grad: int, errs) -> dict:
     ops.chunk_reduce_pairs_(buf, dst, src)
     errs["chunk_reduce_pairs"] = max(errs["chunk_reduce_pairs"], _compare(
         torch, buf[dst], want, "pairs at main shape"))
+    require(torch.equal(buf[dst], want), "pairs at main shape: not "
+            "bit-equal to the plain version")
     del want
     torch.cuda.empty_cache()
 
@@ -744,16 +847,19 @@ def phase_timing(torch, dev, n_grad: int, errs) -> dict:
     out["chunk_reduce_pairs"] = {
         "ms": _cuda_ms(torch, lambda: ops.chunk_reduce_pairs_(buf, dst, src),
                        10),
+        "device_ms": _device_ms(
+            torch, lambda: ops.chunk_reduce_pairs_(buf, dst, src), 5,
+            "chunk_reduce_pairs"),
         "plain_ms": _cuda_ms(
             torch, lambda: ref.chunk_reduce_pairs_ref_(buf, dst, src), 5),
         **_bound(3 * ph * c * buf.element_size(), ph * c),
         "library_ms": _cuda_ms(torch, library, 10),
-        "shape": [p * ph, c], "pairs": ph, "dtype": "float32"}
+        "shape": [p * ph, c], "pairs": ph, "dtype": "float32",
+        "bit_equal": True}
     del buf
     torch.cuda.empty_cache()
     emit({"phase": "timing", **out})
-    return {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")} for k, v in out.items()}
+    return {k: {f: v[f] for f in LINE_FIELDS} for k, v in out.items()}
 
 
 def _nbytes(*ts) -> int:
@@ -780,6 +886,8 @@ def _flash_timing(torch, q, k, v, out, *, route: str, q_offset: int,
     return {
         "ms": _cuda_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
                        iters),
+        "device_ms": _device_ms(
+            torch, lambda: ops.flash_attention(q, k, v, **kw), 5, route),
         "plain_ms": _cuda_ms(
             torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3),
         **_bound(_nbytes(q, kk, vv, out), 4 * hd * H * B * pairs,
@@ -793,15 +901,18 @@ def _flash_timing(torch, q, k, v, out, *, route: str, q_offset: int,
 
 
 def _wkv_timing(torch, x, state0, out, iters: int) -> dict:
-    """wkv at one shape: kernel, plain version, no library call (no one
-    PyTorch call computes the recurrence), and the bound: r, k, v, w, u,
-    state0 in and out and the final state; 7 fp32 flops per state element
-    per token."""
+    """wkv at one shape: kernel (CUDA events over back-to-back calls of the
+    op, host included, and its device time), plain version, no library call
+    (no one PyTorch call computes the recurrence), and the bound: r, k, v,
+    w, u, state0 in and out and the final state; 7 fp32 flops per state
+    element per token."""
     from repro_torch.kernels.wkv import ops, ref
     B, S, H, hd = x[0].shape
     inputs = list(x) + ([state0] if state0 is not None else [])
     return {
         "ms": _cuda_ms(torch, lambda: ops.wkv(*x, state0), iters),
+        "device_ms": _device_ms(torch, lambda: ops.wkv(*x, state0),
+                                min(iters, 10), "wkv"),
         "plain_ms": _cuda_ms(torch, lambda: ref.wkv_ref(*x, state0), 1,
                              warmup=1),
         **_bound(_nbytes(*inputs, *out), 7 * hd * hd * B * H * S),
@@ -867,10 +978,28 @@ def phase_serve_timing(torch, dev, errs) -> dict:
     res["wkv_decode"] = _wkv_timing(torch, x1, state0, wops.wkv(*x1, state0),
                                     iters=50)
     del x, x1, out, state0
+    # the decode step as serving finds it: a layer's state was last touched
+    # 31 layers ago, so rotate over 16 sets of inputs and states (72 MB of
+    # inputs, past the 50 MB L2); `device_ms` is then the kernel's own time
+    # with its inputs cold, `cold_ms` the same calls by CUDA events
+    sets = [(_wkv_inputs(torch, gen, dev, Bw, 1, Hw, hdw),
+             torch.randn((Bw, Hw, hdw, hdw), generator=gen, device=dev))
+            for _ in range(16)]
+    turn = [0]
+
+    def cold():
+        x1, s1 = sets[turn[0] % len(sets)]
+        turn[0] += 1
+        return wops.wkv(*x1, s1)
+
+    res["wkv_decode"].update(
+        device_ms=_device_ms(torch, cold, 64, "wkv"),
+        cold_ms=_cuda_ms(torch, cold, 64),
+        warm_device_ms=res["wkv_decode"]["device_ms"], cold_sets=len(sets))
+    del sets
     torch.cuda.empty_cache()
     emit({"phase": "serve_timing", **res})
-    return {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")}
+    return {k: {f: v[f] for f in LINE_FIELDS}
             for k, v in res.items() if k in KERNELS}
 
 

@@ -53,17 +53,21 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def _start(name: str) -> subprocess.Popen | None:
-    out = library_path(name)
-    if out.exists():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _start_nvcc(src: pathlib.Path, out: pathlib.Path) -> subprocess.Popen:
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(_PKG / SOURCES[name])]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.out_path, proc.tmp_path = out, tmp   # type: ignore[attr-defined]
     return proc
+
+
+def _start(name: str) -> subprocess.Popen | None:
+    out = library_path(name)
+    if out.exists():
+        return None
+    return _start_nvcc(_PKG / SOURCES[name], out)
 
 
 def _finish(name: str, proc: subprocess.Popen | None) -> str:
@@ -77,12 +81,7 @@ def _finish(name: str, proc: subprocess.Popen | None) -> str:
     return log
 
 
-def build_all(names=None) -> dict[str, str]:
-    """Compile every named source (default: all) with one nvcc each, all
-    started together; returns {name: compiler output} (``-Xptxas -v``
-    register and spill report; empty when the library was already built)."""
-    names = list(SOURCES if names is None else names)
-    procs = {n: _start(n) for n in names}
+def _finish_all(procs: dict) -> dict[str, str]:
     try:
         return {n: _finish(n, p) for n, p in procs.items()}
     finally:
@@ -90,6 +89,24 @@ def build_all(names=None) -> dict[str, str]:
             if p is not None and p.poll() is None:
                 p.kill()
                 p.wait()
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile every named source (default: all) with one nvcc each, all
+    started together; returns {name: compiler output} (``-Xptxas -v``
+    register and spill report; empty when the library was already built)."""
+    names = list(SOURCES if names is None else names)
+    return _finish_all({n: _start(n) for n in names})
+
+
+def build_files(sources: dict, out_dir: pathlib.Path) -> dict[str, str]:
+    """Compile each {name: source path} with the same flags into
+    ``out_dir/lib<name>.so``, one nvcc each, all started together (for
+    measurement scripts that build edited or extra sources); returns
+    {name: compiler output}."""
+    return _finish_all({n: _start_nvcc(pathlib.Path(src),
+                                       out_dir / f"lib{n}.so")
+                        for n, src in sources.items()})
 
 
 def load(name: str) -> ctypes.CDLL:

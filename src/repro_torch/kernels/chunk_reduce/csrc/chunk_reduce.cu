@@ -14,14 +14,32 @@
 //
 // What bounds it on an H100: bytes of device memory. Each output element costs
 // W (or 2) loads and one store and a handful of adds, far below the ~295
-// operations per byte where the card would be compute-bound. The design does
-// the one thing that matters for a byte-bound stream: every input byte is read
-// once and every output byte written once, in 16-byte vectors (4 fp32 or 8 bf16
-// per thread), neighbouring threads on neighbouring addresses, with the W-way
-// sum kept in registers. The grid is sized to fill all SMs (a few blocks each)
-// and strides over the vectors, so one launch covers any N. A row whose length
-// or base address does not allow 16-byte vectors takes the scalar instance of
-// the same template (VEC = 1).
+// operations per byte where the card would be compute-bound. Every input byte
+// is read once and every output byte written once.
+//
+// W-way form: a grid-stride loop over 16-byte vectors (4 fp32 or 8 bf16 per
+// thread), neighbouring threads on neighbouring addresses, the W-way sum kept
+// in registers. A row whose length or base address does not allow 16-byte
+// vectors takes the scalar instance of the same template (VEC = 1).
+//
+// Pair form: a stream of tiles. The pairs' rows are cut into tiles of
+// tile_bytes; tile t is pair t / tiles_per_pair at element offset
+// (t % tiles_per_pair) * tile_elems (the formula of pairs_tile in kernel.py).
+// One CTA per 32 KB tile (one-shot, not persistent): its 16-byte aligned
+// body is 256 threads x 8 vectors, and every thread loads its eight dst and
+// eight src vectors (ld.global.cs: read once) before it stores any
+// (st.global.cs), so a CTA keeps 64 KB of loads in flight. The elements
+// before and after the body (a row or view that starts off 16-byte
+// alignment, fp32 rows with C % 4 != 0, bf16 rows with C % 8 != 0) are added
+// with scalar loads and stores by the same CTA in the same launch; a tile
+// whose dst and src sit at different offsets within 16 bytes is all edge.
+// Measured at the training path's shape (tools/chunk_reduce_pairs_variants.py)
+// this reaches ~91-92 % of the byte bound, as PyTorch's add_ does; a ring of
+// bulk copies (cp.async.bulk into shared memory, mbarriers) walked by
+// persistent CTAs, and the grid-stride loop this replaced, stopped at
+// ~86-87 %. That ring is kept for the measurement in
+// tools/chunk_reduce_pairs_ring.cu, which includes this file and uses its
+// Tile, tile_at, add16, add_edges, kThreads, sm_count and DType.
 //
 // Plain C interface (bound with ctypes); each entry point returns the
 // cudaError_t of its launch, 0 on success. Launches go on the caller's stream
@@ -35,6 +53,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;  // 8 x 256 threads = the SM's 2048-thread limit
+constexpr int kVecs = 8;         // pair form: 16-byte vectors per thread and operand
+constexpr int64_t kTileBytes = 16 * kThreads * kVecs;  // pair form: one CTA's tile
 
 enum DType : int64_t { kF32 = 0, kBF16 = 1 };
 
@@ -76,27 +96,97 @@ chunk_reduce_kernel(const Tin* __restrict__ in, Tout* __restrict__ out, int64_t 
   }
 }
 
-// blockIdx.y picks the pair; the x dimension strides over the row's vectors.
-// The caller guarantees that no row is both a source and a destination and
-// that no destination repeats, so the pairs never race.
-template <typename T, int VEC>
+// ---------------------------------------------------------------------------
+// pair form
+// ---------------------------------------------------------------------------
+
+// One tile of one pair: dst and src point at its first element; head, body
+// and tail count elements (body a whole number of 16-byte vectors, 16-byte
+// aligned on both sides).
+template <typename T>
+struct Tile {
+  T* dst;
+  const T* src;
+  int64_t head, body, tail;
+};
+
+template <typename T>
+__device__ __forceinline__ Tile<T> tile_at(T* buf, const int64_t* __restrict__ dst,
+                                           const int64_t* __restrict__ src, int64_t C,
+                                           int64_t tile_elems, int64_t t) {
+  const int64_t per_pair = (C + tile_elems - 1) / tile_elems;
+  const int64_t j = t / per_pair;
+  const int64_t off = (t - j * per_pair) * tile_elems;
+  const int64_t len = C - off < tile_elems ? C - off : tile_elems;
+  Tile<T> tl;
+  tl.dst = buf + dst[j] * C + off;
+  tl.src = buf + src[j] * C + off;
+  const int64_t md = static_cast<int64_t>(reinterpret_cast<uintptr_t>(tl.dst) % 16);
+  const int64_t ms = static_cast<int64_t>(reinterpret_cast<uintptr_t>(tl.src) % 16);
+  if (md != ms) {
+    tl.head = len;
+    tl.body = 0;
+  } else {
+    const int64_t h = ((16 - md) % 16) / static_cast<int64_t>(sizeof(T));
+    tl.head = h < len ? h : len;
+    constexpr int64_t kVec = 16 / sizeof(T);
+    tl.body = (len - tl.head) / kVec * kVec;
+  }
+  tl.tail = len - tl.head - tl.body;
+  return tl;
+}
+
+// 16-byte vector add with one rounding per element, on the raw bits.
+template <typename T>
+__device__ __forceinline__ float4 add16(float4 a, float4 b) {
+  constexpr int VEC = 16 / sizeof(T);
+  const Vec<T, VEC> x = *reinterpret_cast<const Vec<T, VEC>*>(&a);
+  const Vec<T, VEC> y = *reinterpret_cast<const Vec<T, VEC>*>(&b);
+  Vec<T, VEC> o;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) o.v[k] = from_f32<T>(to_f32(x.v[k]) + to_f32(y.v[k]));
+  return *reinterpret_cast<const float4*>(&o);
+}
+
+// The head and tail of a tile, one element per thread and step.
+template <typename T>
+__device__ __forceinline__ void add_edges(const Tile<T>& tl) {
+  const int64_t n = tl.head + tl.tail;
+  for (int64_t e = threadIdx.x; e < n; e += blockDim.x) {
+    const int64_t i = e < tl.head ? e : e + tl.body;
+    tl.dst[i] = from_f32<T>(to_f32(__ldcs(tl.dst + i)) + to_f32(__ldcs(tl.src + i)));
+  }
+}
+
+// One CTA per tile of kThreads * kVecs vectors; every thread loads its
+// vectors of both rows before it stores any. The caller guarantees that no
+// row is both a source and a destination and that no destination repeats, so
+// no two tiles touch the same element.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 chunk_reduce_pairs_kernel(T* buf, const int64_t* __restrict__ dst,
                           const int64_t* __restrict__ src, int64_t C) {
-  const int64_t j = blockIdx.y;
-  Vec<T, VEC>* d = reinterpret_cast<Vec<T, VEC>*>(buf + dst[j] * C);
-  const Vec<T, VEC>* s = reinterpret_cast<const Vec<T, VEC>*>(buf + src[j] * C);
-  const int64_t nvec = C / VEC;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < nvec;
-       i += stride) {
-    const Vec<T, VEC> a = d[i];
-    const Vec<T, VEC> b = s[i];
-    Vec<T, VEC> o;
+  const Tile<T> tl =
+      tile_at(buf, dst, src, C, kTileBytes / static_cast<int64_t>(sizeof(T)), blockIdx.x);
+  const float4* __restrict__ d = reinterpret_cast<const float4*>(tl.dst + tl.head);
+  const float4* __restrict__ r = reinterpret_cast<const float4*>(tl.src + tl.head);
+  float4* out = reinterpret_cast<float4*>(tl.dst + tl.head);
+  const int64_t nvec = tl.body * static_cast<int64_t>(sizeof(T)) / 16;
+  float4 a[kVecs], b[kVecs];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) o.v[k] = from_f32<T>(to_f32(a.v[k]) + to_f32(b.v[k]));
-    d[i] = o;
+  for (int u = 0; u < kVecs; ++u) {
+    const int64_t i = threadIdx.x + u * kThreads;
+    if (i < nvec) {
+      a[u] = __ldcs(d + i);
+      b[u] = __ldcs(r + i);
+    }
   }
+#pragma unroll
+  for (int u = 0; u < kVecs; ++u) {
+    const int64_t i = threadIdx.x + u * kThreads;
+    if (i < nvec) __stcs(out + i, add16<T>(a[u], b[u]));
+  }
+  add_edges(tl);
 }
 
 int sm_count() {
@@ -137,20 +227,15 @@ cudaError_t launch_reduce(const void* in, void* out, int64_t W, int64_t N, cudaS
   return cudaGetLastError();
 }
 
+// One CTA per tile; tiles and their count follow kernel.py::pairs_tile.
 template <typename T>
 cudaError_t launch_pairs(void* buf, const int64_t* dst, const int64_t* src, int64_t P, int64_t C,
                          cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
-  const bool vec_ok = C % VEC == 0 && aligned(buf, 16);
-  const int64_t per_pair = (static_cast<int64_t>(sm_count()) * kBlocksPerSm + P - 1) / P;
-  auto* b = static_cast<T*>(buf);
-  const int64_t nvec = vec_ok ? C / VEC : C;
-  dim3 grid(grid_for(nvec, per_pair), static_cast<unsigned int>(P));
-  if (vec_ok) {
-    chunk_reduce_pairs_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(b, dst, src, C);
-  } else {
-    chunk_reduce_pairs_kernel<T, 1><<<grid, kThreads, 0, stream>>>(b, dst, src, C);
-  }
+  constexpr int64_t tile_elems = kTileBytes / static_cast<int64_t>(sizeof(T));
+  const int64_t tiles = P * ((C + tile_elems - 1) / tile_elems);
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  chunk_reduce_pairs_kernel<T><<<static_cast<unsigned int>(tiles), kThreads, 0, stream>>>(
+      static_cast<T*>(buf), dst, src, C);
   return cudaGetLastError();
 }
 
@@ -173,7 +258,7 @@ extern "C" int chunk_reduce(const void* in, void* out, int64_t W, int64_t N, int
 
 extern "C" int chunk_reduce_pairs(void* buf, const int64_t* dst, const int64_t* src, int64_t P,
                                   int64_t C, int64_t dtype, void* stream) {
-  if (P < 1 || P > 65535 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (P < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return static_cast<int>(launch_pairs<float>(buf, dst, src, P, C, s));
   if (dtype == kBF16) return static_cast<int>(launch_pairs<__nv_bfloat16>(buf, dst, src, P, C, s));

@@ -3,10 +3,15 @@
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with torch, launches on PyTorch's current stream, raises if the
 launch returned a CUDA error, and adds one to its count in `launches`.
+
+The pair form's tile schedule is pure functions here (`pairs_tiles`,
+`pairs_tile`, `tile_split`) with the same formulas as the kernel, so the
+CPU tests cover it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -14,6 +19,10 @@ import torch
 from repro_torch import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# the pair form's tile: one CTA of 256 threads x 8 16-byte vectors
+# (kTileBytes in the kernel)
+PAIR_TILE_BYTES = 16 * 256 * 8
 
 # kernel launches per entry point since the last reset_launches()
 launches = {"chunk_reduce": 0, "chunk_reduce_pairs": 0}
@@ -24,16 +33,48 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
+    """The library, its entry points typed once: every pointer and the
+    stream as c_void_p, every int as c_int64, so ctypes never truncates
+    them to 32 bits."""
     lib = _build.load("chunk_reduce")
-    # every pointer and the stream as c_void_p, every int as c_int64, so
-    # ctypes never truncates them to 32 bits
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
     lib.chunk_reduce.argtypes = [ptr, ptr, i64, i64, i64, i64, ptr]
     lib.chunk_reduce.restype = ctypes.c_int
     lib.chunk_reduce_pairs.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
     lib.chunk_reduce_pairs.restype = ctypes.c_int
     return lib
+
+
+def pairs_tiles(n_pairs: int, C: int, itemsize: int) -> int:
+    """The pair form's tile count, one CTA each: every pair's row of C
+    elements cut into PAIR_TILE_BYTES tiles."""
+    return n_pairs * -(-C // (PAIR_TILE_BYTES // itemsize))
+
+
+def pairs_tile(t: int, C: int, tile_elems: int) -> tuple[int, int, int]:
+    """Tile t of the pair form -> (pair, element offset in the row,
+    length)."""
+    per_pair = -(-C // tile_elems)
+    pair, i = divmod(t, per_pair)
+    off = i * tile_elems
+    return pair, off, min(tile_elems, C - off)
+
+
+def tile_split(dst_addr: int, src_addr: int, length: int,
+               itemsize: int) -> tuple[int, int, int]:
+    """A tile's (head, body, tail) in elements: the body is the run of
+    whole 16-byte vectors that starts 16-byte aligned on both sides; head
+    and tail take the scalar path. Where dst and src sit at different
+    offsets within 16 bytes, the tile is all head."""
+    md, ms = dst_addr % 16, src_addr % 16
+    if md != ms:
+        return length, 0, 0
+    head = min(length, (16 - md) % 16 // itemsize)
+    vec = 16 // itemsize
+    body = (length - head) // vec * vec
+    return head, body, length - head - body
 
 
 def _check_cuda(t: torch.Tensor, what: str) -> None:
@@ -81,13 +122,16 @@ def chunk_reduce_pairs_cuda_(buf: torch.Tensor, dst: Sequence[int],
     _check_cuda(buf, "buf")
     if buf.dim() != 2:
         raise ValueError(f"buf must be (R, C), got {tuple(buf.shape)}")
-    n_pairs = len(dst)
-    if not 1 <= n_pairs <= 65535:
-        raise ValueError(f"need 1 to 65535 pairs, got {n_pairs}")
+    n_pairs, C = len(dst), buf.shape[1]
+    if n_pairs < 1 or C < 1:
+        raise ValueError(f"need a pair and a column, got {n_pairs} pairs "
+                         f"of {C}")
+    if pairs_tiles(n_pairs, C, buf.element_size()) >= 2 ** 31:
+        raise ValueError(f"{n_pairs} pairs of {C} elements exceed the grid")
     idx = torch.tensor([list(dst), list(src)], dtype=torch.int64).to(
         buf.device, non_blocking=True)
     rc = _lib().chunk_reduce_pairs(buf.data_ptr(), idx[0].data_ptr(),
-                                   idx[1].data_ptr(), n_pairs, buf.shape[1],
+                                   idx[1].data_ptr(), n_pairs, C,
                                    _DTYPE_CODE[buf.dtype], _stream(buf))
     _build.check(rc, "chunk_reduce_pairs launch")
     launches["chunk_reduce_pairs"] += 1

@@ -7,7 +7,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.chunk_reduce import ops, ref  # noqa: E402
+from repro_torch.kernels.chunk_reduce import kernel, ops, ref  # noqa: E402
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -95,8 +95,20 @@ def test_cuda_kernel_matches_plain_version():
             got = ops.chunk_reduce(parts, out_dtype=torch.float32)
             want = ref.chunk_reduce_ref(parts, torch.float32)
             torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-        buf = torch.randn((12, 4099), generator=gen, device="cuda").to(tdt)
-        want = buf.clone()
-        ref.chunk_reduce_pairs_ref_(want, [5, 9, 1], [4, 8, 0])
-        ops.chunk_reduce_pairs_(buf, [5, 9, 1], [4, 8, 0])
-        assert torch.equal(buf, want)
+        # the pair form's edges: rows shorter than a vector, lengths that
+        # leave a head or tail in every row, one tile +- 1, and views that
+        # start 1 or 3 elements past a 16-byte boundary
+        tile = kernel.PAIR_TILE_BYTES // torch.empty((), dtype=tdt) \
+            .element_size()
+        for C in (1, 3, 4, 5, 1000, 4097, 4099, tile - 1, tile, tile + 1):
+            for shift in (0, 1, 3):
+                store = torch.randn(12 * C + shift, generator=gen,
+                                    device="cuda").to(tdt)
+                buf = store[shift:].view(12, C)
+                for dst, src in (([5, 9, 1], [4, 8, 0]),
+                                 ([3, 4, 5], [0, 1, 2])):
+                    want = buf.clone()
+                    ref.chunk_reduce_pairs_ref_(want, dst, src)
+                    ops.chunk_reduce_pairs_(buf, dst, src)
+                    assert torch.equal(buf, want), (tdt, C, shift, dst)
+    assert kernel.launches["chunk_reduce_pairs"] > 0

@@ -123,8 +123,12 @@ def test_op_refuses_what_it_does_not_run():
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel is CUDA C++ for sm_90a")
-    for shape in ((1, 16, 2, 8), (2, 33, 3, 16), (1, 64, 1, 32),
-                  (2, 40, 4, 64)):
+    # every head dim: one token, prompts around 16 tokens, past one staged
+    # chunk (33 > WKV_CHUNK) and long; and the JAX sweep's shapes
+    shapes = [(2, S, 3, hd) for hd in kernel.HEAD_DIMS
+              for S in (1, 15, 16, 17, 33, 1024)]
+    for shape in shapes + [(1, 16, 2, 8), (2, 33, 3, 16), (1, 64, 1, 32),
+                           (2, 40, 4, 64)]:
         r, k, v, w, u = (t.cuda() for t in _t(_inputs(sum(shape), *shape)))
         B, S, H, hd = shape
         s0 = torch.randn((B, H, hd, hd), device="cuda")
@@ -134,4 +138,19 @@ def test_cuda_kernel_matches_plain_version():
             torch.testing.assert_close(out, want_out, rtol=TOL, atol=TOL)
             torch.testing.assert_close(state, want_state, rtol=TOL,
                                        atol=TOL)
+    # a state0 view that starts 4 bytes past a 16-byte boundary
+    r, k, v, w, u = (t.cuda() for t in _t(_inputs(3, 2, 17, 4, 64)))
+    s0 = torch.randn(2 * 4 * 64 * 64 + 1, device="cuda")[1:].view(2, 4, 64, 64)
+    out, state = ops.wkv(r, k, v, w, u, s0)
+    want_out, want_state = ref.wkv_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(out, want_out, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(state, want_state, rtol=TOL, atol=TOL)
+    # two calls chained through the state equal one call
+    r, k, v, w, u = (t.cuda() for t in _t(_inputs(7, 2, 40, 4, 64)))
+    full_out, full_state = ops.wkv(r, k, v, w, u)
+    _, st1 = ops.wkv(*(t[:, :17].contiguous() for t in (r, k, v, w)), u)
+    out2, st2 = ops.wkv(*(t[:, 17:].contiguous() for t in (r, k, v, w)), u,
+                        st1)
+    torch.testing.assert_close(out2, full_out[:, 17:], rtol=TOL, atol=TOL)
+    torch.testing.assert_close(st2, full_state, rtol=TOL, atol=TOL)
     assert kernel.launches["wkv"] > 0

@@ -24,18 +24,20 @@ from __future__ import annotations
 import ctypes
 import json
 import pathlib
-import subprocess
 import sys
+
+import _variants
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "src/repro_torch/kernels/flash_attention/csrc/flash_prefill.cu"
-EDITS = {  # variant -> (text, replacement)
-    "base": None,
-    "no_lo": ("    wgmma_pv<HD>(o, p_lo[kk], v_rows);\n", ""),
-    "no_overlap": ("    wgmma_wait<1>();  // S is done", "    wgmma_wait<0>();  // S is done"),
-    "stages2": ("constexpr int kStages = 3;", "constexpr int kStages = 2;"),
-    "stages4": ("constexpr int kStages = 3;", "constexpr int kStages = 4;"),
-    "no_mask": ("const bool masked = kb", "const bool masked = false && kb"),
+EDITS = {  # variant -> [(text, replacement)]
+    "base": [],
+    "no_lo": [("    wgmma_pv<HD>(o, p_lo[kk], v_rows);\n", "")],
+    "no_overlap": [("    wgmma_wait<1>();  // S is done",
+                    "    wgmma_wait<0>();  // S is done")],
+    "stages2": [("constexpr int kStages = 3;", "constexpr int kStages = 2;")],
+    "stages4": [("constexpr int kStages = 3;", "constexpr int kStages = 4;")],
+    "no_mask": [("const bool masked = kb", "const bool masked = false && kb")],
 }
 
 
@@ -48,25 +50,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     out_dir = ROOT / "build" / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    text = SRC.read_text()
-    procs = {}
-    for name, edit in EDITS.items():
-        src = text
-        if edit is not None:
-            if edit[0] not in src:
-                raise SystemExit(f"{name}: {edit[0]!r} not in {SRC.name}")
-            src = src.replace(edit[0], edit[1])
-        (out_dir / f"{name}.cu").write_text(src)
-        procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-             str(out_dir / f"lib{name}.so"), str(out_dir / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    logs = _build.build_files(_variants.write_edits(SRC, EDITS, out_dir),
+                              out_dir)
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+    for name, log in logs.items():
         lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
         p, i = ctypes.c_void_p, ctypes.c_int64
         lib.flash_prefill_fwd.argtypes = (
@@ -86,25 +73,16 @@ def main() -> None:
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
             H, KV, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], 0, S, 0, 1, hd ** -0.5, stream)
-    print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
+    _variants.print_card(torch)
     for name in list(EDITS) + ["base"]:
         fn = libs[name][0].flash_prefill_fwd
 
         def call():
             _build.check(fn(*args), name)
 
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(30):
-            call()
-        end.record()
-        torch.cuda.synchronize()
+        ms = _variants.event_ms(torch, call, 30, warmup=3)
         print(json.dumps({
-            "variant": name, "ms": start.elapsed_time(end) / 30,
+            "variant": name, "ms": ms,
             "max_abs_err": float((out.float() - want.float()).abs().max()),
             "ptxas": libs[name][1]}), flush=True)
 

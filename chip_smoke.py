@@ -12,9 +12,13 @@ phases, each printing one JSON line:
                  bit, at its edges (rows shorter than a vector, heads and
                  tails, one tile +- 1, views off 16-byte alignment);
   flash_kernel - the three flash-attention kernels against their plain
-                 version, each case checked to take its route: the JAX
-                 kernel tests' shapes (fp32/bf16, windows, non-causal) and
-                 qwen3-1.7b's fp32 prefill on the CUDA-core flash_attention;
+                 version, each case checked to take its route: on the
+                 general route (flash_attention, tensor-core 3xTF32) the
+                 JAX kernel tests' shapes (fp32/bf16, windows, non-causal),
+                 fp32 at hd 64 / 128 (rep 1 / 2 / 4, ragged Sq, windows,
+                 non-causal, q_offset), bf16 at hd 8 / 16 / 32, views off
+                 16-byte alignment in both dtypes (prompts and <= 16 rows)
+                 and qwen3-1.7b's fp32 prefill;
                  bf16 prompts at hd 64 / 128 (windows, non-causal, ragged
                  Sq, q_offset, rep 1 / 2 / 4) and qwen3-1.7b's bf16 prefill
                  on flash_prefill; decode steps (kv_len 1 .. 2111, rep
@@ -34,8 +38,8 @@ phases, each printing one JSON line:
   serve_rwkv6  - the same on rwkv6-7b (batch 4, prompt 1024, 32 new tokens);
   reference    - the DP step on the smoke config, card against CPU;
   serve_reference - both smoke configs: the card's greedy tokens equal the
-                 CPU's (the fp32 qwen3 smoke prefill is the CUDA-core
-                 flash_attention's path), and prefill/decode logits equal
+                 CPU's (the fp32 qwen3 smoke prefill is the general
+                 flash_attention route's path), and prefill/decode logits equal
                  `forward`'s;
   timing       - each kernel at its path's shapes (CUDA events, host
                  included, and `device_ms`: the kernels' own time from
@@ -67,7 +71,11 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 495e12                # H100 SXM TF32 tensor cores, dense
 BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
+# fp32 attention: the faster of fp32 FMAs and three TF32 tensor-core
+# products a plain product (3xTF32, fp32-accurate)
+ATTN_FP32_FLOPS = max(FP32_FLOPS, TF32_FLOPS / 3)
 FP32_TOL = 1e-6                    # |kernel - plain| <= 1e-6 * (1 + |plain|)
 # flash_attention and wkv: |kernel - plain| <= tol * (1 + |plain|), the
 # limits of the JAX kernel tests (tests/test_kernels.py)
@@ -144,10 +152,13 @@ def main() -> int:
     ptxas = {name: _ptxas_report(log) for name, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "ptxas": ptxas})
-    # the pair form and wkv keep their operands in registers by design: a
-    # spill there is a fault (a library built before this run has no report)
-    for entry in ptxas.get("chunk_reduce", []) + ptxas.get("wkv", []):
-        if entry["kernel"].startswith(("chunk_reduce_pairs", "wkv")):
+    # the pair form, wkv and the general flash route keep their operands in
+    # registers by design: a spill there is a fault (a library built before
+    # this run has no report)
+    for entry in (ptxas.get("chunk_reduce", []) + ptxas.get("wkv", [])
+                  + ptxas.get("flash_attention", [])):
+        if entry["kernel"].startswith(("chunk_reduce_pairs", "wkv",
+                                       "flash_tc")):
             require(entry["spill_bytes"] == 0,
                     f"{entry['kernel']} spills {entry['spill_bytes']} bytes")
 
@@ -195,7 +206,7 @@ def _ptxas_report(log: str) -> list:
             short = re.search(r"\d+((?:chunk_reduce|flash|wkv)\w*?)"
                               r"(I\w*?E)?Ev", name)
             if short:
-                args = re.findall(r"Li(\d+)E|(f)(?=[EL])|(bfloat16)",
+                args = re.findall(r"Li(\d+)E|Lb(\d)E|(f)(?=[EL])|(bfloat16)",
                                   short.group(2) or "")
                 name = f"{short.group(1)}<{','.join(map(''.join, args))}>"
             continue
@@ -356,6 +367,54 @@ def phase_flash_kernel(torch, dev, errs) -> None:
         check(q, k, v, f"non-causal {dtype}", "flash_attention",
               causal=False)
         cases += 1
+    # the general route (flash_attention), held to the fp32 limit (plus one
+    # bf16 ulp): fp32 prompts at hd 64 / 128, rep 1 / 2 / 4, Sq 200 (not a
+    # multiple of a CTA's 64 row slots), windows, non-causal, and a chunk
+    # after a cached prefix; bf16 prompts at the small head dims; views off
+    # 16-byte alignment in both dtypes, as a prompt and at <= 16 rows (an
+    # unaligned decode step, 8 queries of rep 2)
+    for hd in (64, 128):
+        for rep in (1, 2, 4):
+            KV = 2
+            q = rand((2, 200, KV * rep, hd), torch.float32)
+            k, v = (rand((2, 200, KV, hd), torch.float32),
+                    rand((2, 200, KV, hd), torch.float32))
+            for kw in ({}, {"window": 8}, {"window": 24}, {"window": 1000},
+                       {"causal": False}):
+                check(q, k, v, f"general fp32 hd {hd} rep {rep} {kw}",
+                      "flash_attention", tight=True, **kw)
+            q = rand((2, 130, KV * rep, hd), torch.float32)
+            k, v = (rand((2, 340, KV, hd), torch.float32),
+                    rand((2, 340, KV, hd), torch.float32))
+            check(q, k, v, f"general fp32 hd {hd} rep {rep} q_offset 200",
+                  "flash_attention", tight=True, q_offset=200, kv_len=330)
+            cases += 6
+    for hd in (8, 16, 32):
+        for rep in (1, 2, 4):
+            q = rand((2, 200, 2 * rep, hd), torch.bfloat16)
+            k, v = (rand((2, 200, 2, hd), torch.bfloat16),
+                    rand((2, 200, 2, hd), torch.bfloat16))
+            for kw in ({}, {"window": 24}, {"causal": False}):
+                check(q, k, v, f"general bf16 hd {hd} rep {rep} {kw}",
+                      "flash_attention", tight=True, **kw)
+                cases += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (16, 64, 128):
+            n = 2 * 300 * 2 * hd
+            store = rand((n + 3,), dtype)
+            k, v = store[1:1 + n].view(2, 300, 2, hd), \
+                store[3:3 + n].view(2, 300, 2, hd)
+            check(rand((2, 150, 4, hd), dtype), k, v,
+                  f"general {dtype} hd {hd} unaligned prompt",
+                  "flash_attention", tight=True)
+            check(rand((2, 1, 4, hd), dtype), k, v,
+                  f"general {dtype} hd {hd} unaligned decode",
+                  "flash_attention", tight=True, q_offset=290, kv_len=291)
+            check(rand((2, 8, 4, hd), dtype), k, v,
+                  f"general {dtype} hd {hd} unaligned 16 rows",
+                  "flash_attention", tight=True, q_offset=280, kv_len=288,
+                  window=5)
+            cases += 3
     # flash_prefill: bf16 prompts at hd 64 and 128, GQA rep 1 / 2 / 4, Sq
     # not a multiple of its 64-query tile; causal, windows, non-causal, and
     # a chunk of queries after a cached prefix (q_offset > 0, kv_len < Skv)
@@ -590,7 +649,7 @@ def _serve_kernels(cfg, n_new: int) -> dict:
     """The launches a generate run of n_new tokens must make: one per layer
     in the prefill and in each of the n_new - 1 decode steps; for qwen3 in
     bf16 at hd 128, the prefill on flash_prefill, the decode steps on
-    flash_decode and none on the CUDA-core flash_attention."""
+    flash_decode and none on the general flash_attention route."""
     if cfg.family == "rwkv6":
         return {"wkv": cfg.n_layers * n_new}
     return {"flash_attention": 0, "flash_prefill": cfg.n_layers,
@@ -689,7 +748,7 @@ def phase_serve_reference(torch, dev) -> dict:
     """Both smoke configs, the same parameters on the card and on the CPU:
     greedy tokens equal, and on the card the prefill logits and every
     decode step's logits equal `forward`'s at the same position. The fp32
-    qwen3 smoke prefill (hd 16) is the CUDA-core flash_attention's path:
+    qwen3 smoke prefill (hd 16) is the general flash_attention route's path:
     returns its launches in the card's generate run."""
     import numpy as np
     from repro_torch.configs import get_config
@@ -713,7 +772,7 @@ def phase_serve_reference(torch, dev) -> dict:
         require(torch.equal(got.cpu(), want), f"{cfg.name}: card tokens "
                 f"{got.tolist()} != CPU tokens {want.tolist()}")
         if cfg.family == "dense":
-            # fp32 prompt, 24 rows per kv head: the CUDA-core kernel
+            # fp32 prompt, 24 rows per kv head: the general route
             n_cuda_core = counts["flash_attention"]
             expect = {"flash_attention": cfg.n_layers, "flash_prefill": 0,
                       "flash_decode": cfg.n_layers * 7}
@@ -765,7 +824,7 @@ def _cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 # name -> what the profiler calls its kernels (each name is a substring)
 KERNEL_SYMBOLS = {"chunk_reduce": "chunk_reduce_kernel",
                   "chunk_reduce_pairs": "chunk_reduce_pairs_",
-                  "flash_attention": "flash_fwd_kernel",
+                  "flash_attention": "flash_tc_kernel",
                   "flash_prefill": "flash_prefill_kernel",
                   "flash_decode": "flash_decode_",
                   "wkv": "wkv_kernel"}
@@ -871,8 +930,9 @@ def _flash_timing(torch, q, k, v, out, *, route: str, q_offset: int,
     """One flash route at one shape: kernel, plain version, SDPA (the
     library call: GQA, causal only for the prefill) and the bound: q, the
     first kv_len keys and values, the output; 4 hd flops per visible
-    (query, key) pair at the tensor-core bf16 rate for bf16 inputs and the
-    fp32 rate for fp32 ones."""
+    (query, key) pair, at the tensor-core bf16 rate for bf16 inputs and at
+    ATTN_FP32_FLOPS for fp32 ones (3xTF32), the bound by fp32 FMAs beside
+    it (`bound_fp32_fma_ms`)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     require(kernel.pick_route(q, k, v) == route,
@@ -883,6 +943,13 @@ def _flash_timing(torch, q, k, v, out, *, route: str, q_offset: int,
     qt, kt, vt = q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
     pairs = sum(min(kv_len, q_offset + i + 1) if causal else kv_len
                 for i in range(Sq))
+    flops = 4 * hd * H * B * pairs
+    nbytes = _nbytes(q, kk, vv, out)
+    if q.dtype == torch.bfloat16:
+        bound = _bound(nbytes, flops, BF16_FLOPS)
+    else:
+        bound = _bound(nbytes, flops, ATTN_FP32_FLOPS)
+        bound["bound_fp32_fma_ms"] = _bound(nbytes, flops)["bound_ms"]
     return {
         "ms": _cuda_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
                        iters),
@@ -890,8 +957,7 @@ def _flash_timing(torch, q, k, v, out, *, route: str, q_offset: int,
             torch, lambda: ops.flash_attention(q, k, v, **kw), 5, route),
         "plain_ms": _cuda_ms(
             torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3),
-        **_bound(_nbytes(q, kk, vv, out), 4 * hd * H * B * pairs,
-                 BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS),
+        **bound,
         "library_ms": _cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal and Sq > 1, enable_gqa=True),
             iters),
@@ -923,10 +989,13 @@ def _wkv_timing(torch, x, state0, out, iters: int) -> dict:
 
 def phase_serve_timing(torch, dev, errs) -> dict:
     """The three flash routes at qwen3-1.7b's shapes: flash_prefill at the
-    bf16 prefill, flash_decode at a mid-decode step, the CUDA-core
-    flash_attention at the same prefill in fp32 (its route: fp32 prompts);
-    wkv at rwkv6-7b's prefill and decode shapes. The `kernels` line takes
-    flash_decode's decode shape and wkv's prefill shape."""
+    bf16 prefill, flash_decode at a mid-decode step, the general
+    flash_attention route at the same prefill in fp32 (its route: fp32
+    prompts), and the general route at the smoke configs' head dim at a
+    realistic length, (8, 2048, 4/2, 16), in fp32 and bf16; wkv at
+    rwkv6-7b's prefill and decode shapes. The `kernels` line takes
+    flash_decode's decode shape, the general route's qwen3 fp32 prefill and
+    wkv's prefill shape."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.wkv import ops as wops
@@ -938,17 +1007,25 @@ def phase_serve_timing(torch, dev, errs) -> dict:
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     res = {}
-    for dtype, route, iters in ((torch.bfloat16, "flash_prefill", 20),
-                                (torch.float32, "flash_attention", 5)):
-        q, k, v = (rand((B, S, H, hd), dtype), rand((B, S, KV, hd), dtype),
-                   rand((B, S, KV, hd), dtype))
+    for name, dtype, route, (Hh, KVh, hdh), iters in (
+            ("flash_prefill", torch.bfloat16, "flash_prefill", (H, KV, hd),
+             20),
+            ("flash_attention", torch.float32, "flash_attention",
+             (H, KV, hd), 10),
+            ("flash_attention_hd16_float32", torch.float32,
+             "flash_attention", (4, 2, 16), 20),
+            ("flash_attention_hd16_bfloat16", torch.bfloat16,
+             "flash_attention", (4, 2, 16), 20)):
+        q, k, v = (rand((B, S, Hh, hdh), dtype),
+                   rand((B, S, KVh, hdh), dtype),
+                   rand((B, S, KVh, hdh), dtype))
         out = fops.flash_attention(q, k, v)
         errs[route] = max(errs[route], _compare(
             torch, out, fref.flash_attention_ref(q, k, v),
-            f"timed prefill {route}", FLASH_TOL["float32"], ulp=True))
-        res[route] = _flash_timing(torch, q, k, v, out, route=route,
-                                   q_offset=0, kv_len=S, causal=True,
-                                   iters=iters)
+            f"timed prefill {name}", FLASH_TOL["float32"], ulp=True))
+        res[name] = _flash_timing(torch, q, k, v, out, route=route,
+                                  q_offset=0, kv_len=S, causal=True,
+                                  iters=iters)
         del q, k, v, out
         torch.cuda.empty_cache()
     n_new = SERVE_QWEN3["new_tokens"]

@@ -6,6 +6,8 @@ Each `kernel.py` keeps a `launches` count per entry point, which a run
 reads to show that its path went through the kernels."""
 from __future__ import annotations
 
+SMEM_PER_CTA = 232448   # the most shared memory one CTA may use (sm_90)
+
 
 def _kernel_modules():
     from repro_torch.kernels.chunk_reduce import kernel as chunk_reduce

@@ -6,8 +6,10 @@ the rule that picks one of them for a call.
   over CTAs and the partials combined in split order.
 - `flash_prefill` (csrc/flash_prefill.cu): bf16 at hd 64 or 128, both
   products on the tensor cores (wgmma).
-- `flash_attention` (csrc/flash_attention.cu): everything else (fp32
-  prompts, the small head dims), fp32 FMAs on the CUDA cores.
+- `flash_attention` (csrc/flash_attention.cu), the general route:
+  everything else (fp32 prompts, the small head dims, unaligned strides),
+  both products on the tensor cores as mma.sync TF32, fp32 operands split
+  into hi + lo ("3xTF32").
 
 `route` decides on the host, before any launch, from the dtype, the head
 dim, the rows per kv head and the byte alignment of the addresses and
@@ -18,6 +20,10 @@ a KV cache is read in place), allocates the output (and the decode
 kernel's workspace) with torch, launches on PyTorch's current stream,
 raises if the launch returned a CUDA error, and adds one to
 `launches[<its name>]`.
+
+`general_plan` and `general_slot` mirror the general route's launch plan
+and its CTA -> row-slot map in csrc/flash_attention.cu for the CPU tests,
+which hold the mirror and the source's constants in step.
 """
 from __future__ import annotations
 
@@ -41,6 +47,11 @@ DECODE_CTAS_PER_SM = 2
 DECODE_MIN_KEYS = 64
 DECODE_MAX_SPLITS = 64          # csrc/flash_decode.cu's kMaxSplits
 
+# the general route's plan: csrc/flash_attention.cu's kWarps, kBKV, kStages
+GENERAL_WARPS = 4               # warps (16 row slots each) per CTA
+GENERAL_BKV = 32                # keys per staged K / V tile
+GENERAL_STAGES = 3              # tiles in the cp.async ring
+
 # kernel launches since the last reset_launches()
 launches = {"flash_attention": 0, "flash_prefill": 0, "flash_decode": 0}
 
@@ -62,6 +73,31 @@ def route(dtype: torch.dtype, hd: int, rows: int, byte_steps) -> str:
     if dtype == torch.bfloat16 and hd in PREFILL_HEAD_DIMS and aligned:
         return "flash_prefill"
     return "flash_attention"
+
+
+def general_plan(hd: int, itemsize: int, rows: int, aligned: bool) -> dict:
+    """The general route's launch for one (b, kv head) of `rows` row slots
+    (Sq x H / KV): CTAs of GENERAL_WARPS warps of 16 slots, or of one warp
+    for at most 16 slots; K / V tiles of GENERAL_BKV keys in a ring of
+    GENERAL_STAGES, each row padded by 16 bytes, in the input's type;
+    staged by 16-byte cp.async when `aligned` (and more than one warp),
+    else by 4-byte cp.async (fp32) or plain loads (bf16)."""
+    warps = 1 if rows <= DECODE_MAX_ROWS else GENERAL_WARPS
+    row_bytes = hd * itemsize + 16
+    if aligned and warps > 1:
+        staging = "cp.async 16"
+    else:
+        staging = "cp.async 4" if itemsize == 4 else "load"
+    return {"warps": warps, "rows": 16 * warps, "bkv": GENERAL_BKV,
+            "stages": GENERAL_STAGES, "row_bytes": row_bytes,
+            "smem": GENERAL_STAGES * 2 * GENERAL_BKV * row_bytes,
+            "grid_x": -(-rows // (16 * warps)), "staging": staging}
+
+
+def general_slot(plan: dict, bx, warp, row):
+    """The row slot that row `row` (0-15) of warp `warp` of CTA `bx` keeps:
+    CTAs take the last row blocks (the most keys when causal) first."""
+    return (plan["grid_x"] - 1 - bx) * plan["rows"] + 16 * warp + row
 
 
 def pick_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels import SMEM_PER_CTA
 
 HEAD_DIMS = (8, 16, 32, 64)
 WKV_CHUNK = 32             # tokens staged per chunk
@@ -29,7 +30,6 @@ WKV_STAGES = 2             # chunks in the cp.async ring (kStages in wkv.cu)
 # time is the latency of the state's loads and stores)
 WKV_COLS_PER_THREAD = {"prompt": 2, "token": 1}
 WKV_CTAS_PER_SM = {"prompt": 1, "token": 4}
-SMEM_PER_CTA = 232448      # the most shared memory one CTA may use
 
 # kernel launches since the last reset_launches()
 launches = {"wkv": 0}

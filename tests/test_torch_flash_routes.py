@@ -47,7 +47,7 @@ def test_route_rule(dtype, hd, rows, steps, want):
 def test_model_tensors_take_the_new_routes():
     """At qwen3-1.7b's serve shapes the prefill's q, k, v and a decode
     step's q with one layer's slice of the 5-D cache take the new kernels;
-    the fp32 smoke config's prompt takes the CUDA-core kernel."""
+    the fp32 smoke config's prompt takes the general route."""
     cfg = get_config("qwen3-1.7b")
     B, S, H, KV, hd = 1, 256, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = torch.zeros(B, S, H * hd, dtype=BF).reshape(B, S, H, hd)
@@ -65,7 +65,7 @@ def test_model_tensors_take_the_new_routes():
 
 def test_route_misaligned_view():
     """A k that starts 4 elements into its storage is not 16-byte aligned:
-    the CUDA-core kernel takes it."""
+    the general route takes it."""
     q = torch.zeros(1, 1, 2, 64, dtype=BF)
     k = torch.zeros(1, 9, 2, 64, dtype=BF).reshape(-1)[4:4 + 8 * 128] \
         .reshape(1, 8, 2, 64)

@@ -1,28 +1,39 @@
 """End-to-end training launcher with fault tolerance (the port of
 `repro/launch/train.py`).
 
-Runs data-parallel training with deterministic failure injection (NIC
-degradation events): on each event the OptCC planner produces the new
-collective plan and the train step is re-built, mirroring NCCL
-communicator re-init, and the degraded mode syncs gradients with
-optcc_allreduce instead of psum - the paper's straggler mitigation.
+Runs data-parallel training with:
+  * checkpoint/restart in the JAX package's format (atomic, auto-resume
+    from the latest step, a save every --ckpt-every steps),
+  * deterministic failure injection (NIC degradation events): on each
+    event the OptCC planner produces the new collective plan and the train
+    step is re-built, mirroring NCCL communicator re-init, and the degraded
+    mode syncs gradients with optcc_allreduce instead of psum - the paper's
+    straggler mitigation,
+  * elastic rescale (--lose-node-at): checkpoint, halve the DP members,
+    rebuild the step, restore, continue.
+
+As in the JAX launcher, the injector's fault state is not checkpointed: a
+run resumed inside a degraded window syncs with psum until the next event.
 
 The DP members are `--dp` rows of one tensor on one device (the
 single-process transport), standing in for JAX's forced device count.
 Runs on CUDA unless `--device cpu` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
-      --smoke --steps 200 --fail-at 60 --repair-at 120 --device cpu
-
-Checkpointing (--ckpt-dir, --lose-node-at) comes with a later slice.
+      --smoke --steps 200 --fail-at 60 --repair-at 120 --device cpu \
+      --ckpt-dir /tmp/ckpt
 """
 from __future__ import annotations
 
 import argparse
+import os
+import pathlib
+import tempfile
 import time
 
 import torch
 
+from repro_torch.checkpoint import latest_step, restore, save
 from repro_torch.comms import LocalTransport
 from repro_torch.comms.fault import FailureInjector, FaultState
 from repro_torch.configs import get_config
@@ -35,11 +46,39 @@ from repro_torch.optim.schedules import warmup_stable_decay
 from repro_torch.train import init_train_state, make_dp_failover_step
 
 
+def _saved(ckpt_dir, step: int, state, device) -> dict:
+    """Save `state` as checkpoint `step`; returns the save's record."""
+    synchronize(device)
+    t = time.perf_counter()
+    save(ckpt_dir, step, state)
+    seconds = time.perf_counter() - t
+    return {"op": "save", "step": step, "seconds": seconds,
+            "bytes": _npz_bytes(ckpt_dir, step)}
+
+
+def _restored(ckpt_dir, state, device, step=None):
+    """Restore checkpoint `step` (default: the latest) into `state`;
+    returns (state, its step, the restore's record)."""
+    t = time.perf_counter()
+    state, meta = restore(ckpt_dir, state, step)
+    synchronize(device)
+    seconds = time.perf_counter() - t
+    step = int(meta["step"])
+    return state, step, {"op": "restore", "step": step, "seconds": seconds,
+                         "bytes": _npz_bytes(ckpt_dir, step)}
+
+
+def _npz_bytes(ckpt_dir, step: int) -> int:
+    return (pathlib.Path(ckpt_dir) / f"step_{step}" / "arrays.npz") \
+        .stat().st_size
+
+
 def main(argv=None):
     """Returns (state, log): the final TrainState and one dict per step
-    (loss, grad_norm, sync kind, the planner's algo, the step's wall
-    seconds and those of its grad/sync/update phases, chunk_reduce kernel
-    launches)."""
+    (loss, grad_norm, sync kind, the planner's algo, DP members, the step's
+    wall seconds and those of its grad/sync/update phases, chunk_reduce
+    kernel launches, and `checkpoint`: the restores, saves and rescale made
+    at this step, each with its checkpoint step, seconds and bytes)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--smoke", action="store_true",
@@ -58,15 +97,13 @@ def main(argv=None):
     ap.add_argument("--straggler", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--lose-node-at", type=int, default=None,
-                    help="elastic rescale (not yet ported)")
+                    help="simulate losing half the DP members at this "
+                         "step: checkpoint, rebuild the step on the "
+                         "survivors, restore, continue (elastic rescale)")
     ap.add_argument("--dp", type=int, default=4,
                     help="DP members of the single-process transport")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None or args.lose_node_at is not None:
-        raise NotImplementedError(
-            "--ckpt-dir and --lose-node-at are not yet ported: "
-            "checkpointing comes with a later slice")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -97,9 +134,40 @@ def main(argv=None):
     n_grad = model.param_count(state.params)
     plan = fault.plan(n_grad)
     log = []
+    events = []          # the checkpoint work done at the coming step
+    start = 0
+    if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        state, start, rec = _restored(args.ckpt_dir, state, device)
+        events.append(rec)
+        print(f"resumed from checkpoint at step {start} ({rec['bytes']} "
+              f"bytes in {rec['seconds']:.2f} s)")
 
     t0 = time.time()
-    for step in range(args.steps):
+    for step in range(start, args.steps):
+        if args.lose_node_at is not None and step == args.lose_node_at \
+                and dp > 1:
+            # Elastic rescale: half the DP members "fail". Checkpoint,
+            # rebuild the transport and step on the survivors, restore,
+            # continue. (Batches stay the same: the pipeline is keyed on
+            # (seed, step), not on the members.)
+            t_rescale = time.perf_counter()
+            ckpt = args.ckpt_dir or os.path.join(tempfile.gettempdir(),
+                                                 "repro_elastic_ckpt")
+            events.append(_saved(ckpt, step, state, device))
+            dp = max(dp // 2, 1)
+            transport = LocalTransport(dp)
+            fault = FaultState(axis_size=dp)
+            injector = None   # the old ring is gone
+            step_fn = make_dp_failover_step(model, transport, opt, lr_fn,
+                                            fault)
+            state, _, rec = _restored(ckpt, state, device, step)
+            events.append(rec)
+            plan = fault.plan(n_grad)
+            seconds = time.perf_counter() - t_rescale
+            events.append({"op": "rescale", "step": step, "dp": dp,
+                           "seconds": seconds})
+            print(f"step {step}: NODE LOSS - resumed on {dp} DP members "
+                  f"(elastic reshard from checkpoint, {seconds:.2f} s)")
         if injector is not None:
             new_fault = injector.at_step(step, fault)
             if new_fault != fault:
@@ -125,17 +193,22 @@ def main(argv=None):
         rec = {"step": step, "loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"]),
                "sync": "optcc" if fault.degraded else "psum",
-               "algo": plan.algo, "step_seconds": step_seconds,
+               "algo": plan.algo, "dp": dp, "step_seconds": step_seconds,
                **{k: metrics[k] for k in ("grad_seconds", "sync_seconds",
                                           "update_seconds")},
                "launches": {k: v - before[k] for k, v in
-                            chunk_reduce_kernel.launches.items()}}
+                            chunk_reduce_kernel.launches.items()},
+               "checkpoint": events}
+        events = []
         log.append(rec)
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d} loss {rec['loss']:.4f} "
                   f"gnorm {rec['grad_norm']:.3f} "
                   f"({(time.time() - t0):.1f}s) [{rec['sync']}, sync "
                   f"{rec['sync_seconds'] * 1e3:.1f} ms]", flush=True)
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            rec["checkpoint"].append(_saved(args.ckpt_dir, step + 1, state,
+                                            device))
     print("done")
     return state, log
 

@@ -6,11 +6,16 @@ the tests run this file in a subprocess:
 
     python tests/jax_reference.py collectives OUT.npz
     python tests/jax_reference.py train_step OUT.npz
+    python tests/jax_reference.py elastic DIR
 
-Each command writes its inputs and the JAX results to OUT.npz. Importing
-this module (as the tests do, for `flat_numpy`) sets nothing and imports
-no JAX.
+The first two write their inputs and the JAX results to OUT.npz. `elastic`
+saves JAX's initial train state as DIR/ckpt/step_0, runs the JAX launcher
+from it with a node loss (ELASTIC_ARGV) and writes the launcher's printed
+lines and final parameters to DIR/elastic.npz. Importing this module (as
+the tests do, for `flat_numpy`) sets nothing and imports no JAX.
 """
+import contextlib
+import io
 import os
 import sys
 
@@ -23,6 +28,9 @@ STRAGGLERS = (0, 1, 3)
 TRAIN_STEPS = 3
 TRAIN_LR = 1e-3
 DEGRADED = (1, 1.5)         # straggler, ell
+# the launcher flags of the elastic run (4 members, half lost at step 2)
+ELASTIC_ARGV = ["--smoke", "--steps", "4", "--lose-node-at", "2",
+                "--log-every", "1"]
 
 
 def flat_numpy(tree, prefix: str = "") -> dict:
@@ -121,10 +129,30 @@ def train_step(out_path: str) -> None:
     np.savez(out_path, **res)
 
 
+def elastic(out_dir: str) -> None:
+    import jax
+
+    from repro.checkpoint import save
+    from repro.launch.train import main as train_main
+    from repro.models import build_model
+    from repro.optim import AdamWConfig
+    from repro.train import init_train_state
+    assert jax.device_count() == P, jax.device_count()
+    ckpt = os.path.join(out_dir, "ckpt")
+    model = build_model(train_config())
+    save(ckpt, 0, init_train_state(model, AdamWConfig(weight_decay=0.01)))
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        state = train_main(ELASTIC_ARGV + ["--ckpt-dir", ckpt])
+    np.savez(os.path.join(out_dir, "elastic.npz"),
+             lines=np.asarray(printed.getvalue().splitlines()),
+             **flat_numpy(state.params, "params/"))
+
+
 if __name__ == "__main__":
     os.environ["XLA_FLAGS"] = (
         f"--xla_force_host_platform_device_count={P} "
         + os.environ.get("XLA_FLAGS", ""))
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    {"collectives": collectives, "train_step": train_step}[sys.argv[1]](
-        sys.argv[2])
+    {"collectives": collectives, "train_step": train_step,
+     "elastic": elastic}[sys.argv[1]](sys.argv[2])

@@ -90,7 +90,9 @@ def test_cuda_kernel_matches_plain_version():
         pytest.skip("needs a CUDA card: the kernel is CUDA C++ for sm_90a")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for tdt in (torch.float32, torch.bfloat16):
-        for w, n in ((1, 128), (7, 5001), (16, 2 ** 20 + 3)):
+        # W = 2: the healthy sync after an elastic rescale to 2 members
+        for w, n in ((1, 128), (2, 5001), (2, 2 ** 20 + 3), (7, 5001),
+                     (16, 2 ** 20 + 3)):
             parts = torch.randn((w, n), generator=gen, device="cuda").to(tdt)
             got = ops.chunk_reduce(parts, out_dtype=torch.float32)
             want = ref.chunk_reduce_ref(parts, torch.float32)

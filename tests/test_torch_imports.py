@@ -28,7 +28,8 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 for mod in ("kernels.chunk_reduce.kernel", "kernels.flash_attention.kernel",
             "kernels.wkv.kernel", "models.rwkv6", "train.serve",
-            "launch.serve", "configs.rwkv6_7b"):
+            "launch.serve", "configs.rwkv6_7b", "checkpoint.ckpt",
+            "checkpoint._msgpack"):
     assert "repro_torch." + mod in names, mod
 print("IMPORTED", len(names))
 """
@@ -44,6 +45,28 @@ def _env():
 def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                           text=True, env=_env(), timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTED" in proc.stdout
+
+
+_CHECKPOINT_PROBE = r"""
+import sys
+import repro_torch.checkpoint
+import repro_torch.checkpoint._msgpack
+import repro_torch.checkpoint.ckpt
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes"))
+assert not bad, bad
+print("IMPORTED")
+"""
+
+
+def test_checkpoint_needs_no_msgpack_nor_ml_dtypes():
+    """The card's machine has neither package: the port's checkpoint
+    module writes and reads the JAX format without them."""
+    proc = subprocess.run([sys.executable, "-c", _CHECKPOINT_PROBE],
+                          capture_output=True, text=True, env=_env(),
+                          timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "IMPORTED" in proc.stdout
 

@@ -114,12 +114,18 @@ def test_launcher_failover_log_matches_jax_planner(capsys):
     assert all(np.isfinite(r["loss"]) for r in log)
 
 
-def test_launcher_without_a_ring_disables_injection(capsys):
+def test_launcher_without_a_ring_disables_injection(capsys, tmp_path):
     train_main(["--smoke", "--device", "cpu", "--dp", "2", "--fail-at", "1",
                 "--steps", "2", "--seq-len", "16"])
     assert "failure injection disabled" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        train_main(["--smoke", "--device", "cpu", "--ckpt-dir", "x"])
+    # a node loss from 2 members leaves 1: still no ring, still no injection
+    _, log = train_main(["--smoke", "--device", "cpu", "--dp", "2",
+                         "--fail-at", "1", "--lose-node-at", "1", "--steps",
+                         "2", "--seq-len", "16", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "failure injection disabled" in out and "DEGRADED" not in out
+    assert "step 1: NODE LOSS - resumed on 1 " in out
+    assert [(r["dp"], r["sync"]) for r in log] == [(2, "psum"), (1, "psum")]
 
 
 @pytest.mark.parametrize("shard", [(0, 1), (1, 2), (3, 4)])

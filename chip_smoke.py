@@ -20,10 +20,12 @@ phases, each printing one JSON line:
                  16-byte alignment in both dtypes (prompts and <= 16 rows)
                  and qwen3-1.7b's fp32 prefill;
                  bf16 prompts at hd 64 / 128 (windows, non-causal, ragged
-                 Sq, q_offset, rep 1 / 2 / 4) and qwen3-1.7b's bf16 prefill
-                 on flash_prefill; decode steps (kv_len 1 .. 2111, rep
+                 Sq, q_offset, rep 1 / 2 / 4), qwen3-1.7b's bf16 prefill
+                 and gemma3-27b's local prefill (window 1024) on
+                 flash_prefill; decode steps (kv_len 1 .. 2111, rep
                  1 / 2 / 8, a window, 16 rows, fp32 and bf16, one split and
-                 many) and qwen3-1.7b's decode on flash_decode;
+                 many), qwen3-1.7b's decode and gemma3-27b's ring decode
+                 (non-causal over 1024 and 300 ring slots) on flash_decode;
   wkv_kernel   - wkv against its plain version: every head dim at S 1, 15,
                  16, 17, 33 and 1024 with and without an initial state, the JAX
                  sweep, state chaining over two calls, the rwkv6-7b prefill
@@ -46,21 +48,29 @@ phases, each printing one JSON line:
   serve_qwen3  - `repro_torch.launch.serve.main` on qwen3-1.7b at full width
                  and depth (batch 8, prompt 2048, 64 new tokens);
   serve_rwkv6  - the same on rwkv6-7b (batch 4, prompt 1024, 32 new tokens);
-  reference    - the DP step on the smoke config, card against CPU;
-  serve_reference - both smoke configs: the card's greedy tokens equal the
-                 CPU's (the fp32 qwen3 smoke prefill is the general
-                 flash_attention route's path), and prefill/decode logits equal
-                 `forward`'s;
+  serve_gemma3 - the same on gemma3-27b (62 layers, 52 local with a window
+                 of 1024 and a rolling cache, 10 global; batch 4, prompt
+                 2048, 32 new tokens): each layer kind's attention calls
+                 counted beside the launches;
+  reference    - the DP step on the qwen3 and gemma3 smoke configs, card
+                 against CPU;
+  serve_reference - the three smoke configs: the card's greedy tokens equal
+                 the CPU's (the fp32 qwen3 and gemma3 smoke prefills are the
+                 general flash_attention route's path), and prefill/decode
+                 logits equal `forward`'s (gemma3's decode past its rings'
+                 wrap);
   timing       - each kernel at its path's shapes (CUDA events, host
                  included, and `device_ms`: the kernels' own time from
                  torch.profiler) beside its bound, its plain version and one
                  PyTorch library call that computes the same function, where
                  there is one (chunk_reduce also at W = 2, the elastic run's
-                 shape); wkv's decode step also with its inputs cold in L2,
-                 rotating over 16 sets of inputs and states.
+                 shape; flash_prefill also at gemma3-27b's local prefill and
+                 flash_decode at its ring decode); wkv's decode step also
+                 with its inputs cold in L2, rotating over 16 sets of inputs
+                 and states.
 
-Each path (training, its resumed and rescaled runs, the two serve runs, the
-smoke configs' card run) is driven with the kernels' launch counts set to 0
+Each path (training, its resumed and rescaled runs, the three serve runs,
+the smoke configs' card run) is driven with the kernels' launch counts set to 0
 just before it and read just after. Then it prints the whole run's seconds,
 the card's name and power limit (nvidia-smi), a `kernels` JSON line, and, as
 the last line, {"ok": true, "device": {...}}. Any failed check raises: the
@@ -127,6 +137,9 @@ SERVE_QWEN3 = {"arch": "qwen3-1.7b", "batch": 8, "prompt_len": 2048,
                "new_tokens": 64}
 SERVE_RWKV6 = {"arch": "rwkv6-7b", "batch": 4, "prompt_len": 1024,
                "new_tokens": 32}
+# the prompt is longer than the local window, so the rings wrap in prefill
+SERVE_GEMMA3 = {"arch": "gemma3-27b", "batch": 4, "prompt_len": 2048,
+                "new_tokens": 32}
 FLASH_ROUTES = ("flash_attention", "flash_prefill", "flash_decode")
 # the timing fields of each kernel in the `kernels` line
 LINE_FIELDS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -198,10 +211,10 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     del main_run
-    launches.update(phase_serve(torch, dev, SERVE_QWEN3))
-    launches.update(phase_serve(torch, dev, SERVE_RWKV6))
+    for spec in (SERVE_QWEN3, SERVE_RWKV6, SERVE_GEMMA3):
+        _add(launches, phase_serve(torch, dev, spec))
     phase_reference(torch, dev)
-    launches.update(phase_serve_reference(torch, dev))
+    _add(launches, phase_serve_reference(torch, dev))
     timings = phase_timing(torch, dev, n_grad, errs)
     timings.update(phase_serve_timing(torch, dev, errs))
     emit({"phase": "total", "seconds": time.perf_counter() - t_script})
@@ -222,6 +235,12 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _add(total: dict, counts: dict) -> None:
+    """Add a path's kernel launches to the run's totals."""
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
 
 
 def _ptxas_report(log: str) -> list:
@@ -354,6 +373,14 @@ def _qwen3_attn_shape():
     cfg = get_config(SERVE_QWEN3["arch"])
     return (SERVE_QWEN3["batch"], SERVE_QWEN3["prompt_len"], cfg.n_heads,
             cfg.n_kv_heads, cfg.hd)
+
+
+def _gemma3_attn_shape():
+    """(B, S, H, KV, hd, local window) of the serve_gemma3 run."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_GEMMA3["arch"])
+    return (SERVE_GEMMA3["batch"], SERVE_GEMMA3["prompt_len"], cfg.n_heads,
+            cfg.n_kv_heads, cfg.hd, cfg.local_window)
 
 
 def phase_flash_kernel(torch, dev, errs) -> None:
@@ -527,6 +554,23 @@ def phase_flash_kernel(torch, dev, errs) -> None:
         cases += 1 + len(positions)
         del kc, vc, q
         torch.cuda.empty_cache()
+    # gemma3-27b's local layers (hd 128, GQA 32/16, bf16): one prompt of the
+    # serve run's length within the window, and a decode row over a full
+    # ring and a part-filled one (non-causal over its first kv_len slots)
+    Bg, S, H, KV, hd, w = _gemma3_attn_shape()
+    q = rand((1, S, H, hd), bf)
+    k, v = rand((1, S, KV, hd), bf), rand((1, S, KV, hd), bf)
+    check(q, k, v, f"gemma3 local prefill window {w}", "flash_prefill",
+          tight=True, window=w)
+    del q, k, v
+    ring_k, ring_v = (rand((Bg, w, KV, hd), bf) for _ in range(2))
+    q = rand((Bg, 1, H, hd), bf)
+    for kv_len in (w, 300):
+        check(q, ring_k, ring_v, f"gemma3 ring decode kv_len {kv_len}",
+              "flash_decode", tight=True, causal=False, kv_len=kv_len)
+    cases += 3
+    del q, ring_k, ring_v
+    torch.cuda.empty_cache()
     emit({"phase": "flash_kernel", "cases": cases,
           "max_abs_err": {r: errs[r] for r in FLASH_ROUTES},
           "by_group": by_group, "decode_splits": sorted(splits),
@@ -916,18 +960,66 @@ def phase_elastic(torch, dev, ckpt_dir: str, main_run: dict) -> None:
 
 def _serve_kernels(cfg, n_new: int) -> dict:
     """The launches a generate run of n_new tokens must make: one per layer
-    in the prefill and in each of the n_new - 1 decode steps; for qwen3 in
-    bf16 at hd 128, the prefill on flash_prefill, the decode steps on
-    flash_decode and none on the general flash_attention route."""
+    in the prefill and in each of the n_new - 1 decode steps; for qwen3 and
+    gemma3 in bf16 at hd 128, the prefill on flash_prefill, the decode
+    steps on flash_decode and none on the general flash_attention route."""
     if cfg.family == "rwkv6":
         return {"wkv": cfg.n_layers * n_new}
     return {"flash_attention": 0, "flash_prefill": cfg.n_layers,
             "flash_decode": cfg.n_layers * (n_new - 1)}
 
 
+def _serve_calls(cfg, n_new: int) -> dict:
+    """The serving attention calls of a dense model's generate run, by
+    layer kind: each local layer's prefill within its window and its decode
+    steps over its ring, each global layer's over the whole sequence."""
+    from repro_torch.models.transformer import layer_is_global
+    n_glob = int(layer_is_global(cfg).sum())
+    n_loc = cfg.n_layers - n_glob
+    return {"prefill_windowed": n_loc, "prefill_global": n_glob,
+            "decode_ring": n_loc * (n_new - 1),
+            "decode_global": n_glob * (n_new - 1)}
+
+
+@contextlib.contextmanager
+def _attention_calls(calls: dict):
+    """While it is open, the transformer's serving attention calls
+    (models/attention.py) are counted into `calls` by `_serve_calls`'
+    kinds."""
+    from repro_torch.models import attention as attn
+    names = ("prefill_attention", "decode_attention",
+             "ring_decode_attention")
+    orig = {n: getattr(attn, n) for n in names}
+    for kind in ("prefill_windowed", "prefill_global", "decode_ring",
+                 "decode_global"):
+        calls[kind] = 0
+
+    def prefill(q, k, v, window=0):
+        calls["prefill_windowed" if window > 0 else "prefill_global"] += 1
+        return orig["prefill_attention"](q, k, v, window)
+
+    def decode(*args, **kw):
+        calls["decode_global"] += 1
+        return orig["decode_attention"](*args, **kw)
+
+    def ring(*args, **kw):
+        calls["decode_ring"] += 1
+        return orig["ring_decode_attention"](*args, **kw)
+
+    for name, fn in zip(names, (prefill, decode, ring)):
+        setattr(attn, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(attn, name, fn)
+
+
 def phase_serve(torch, dev, spec: dict) -> dict:
     """`launch.serve.main` at full width and depth; returns the launches
-    of the path's kernels in that run."""
+    of the path's kernels in that run. For a dense model each launch is
+    also matched to its layer kind (local within its window and over its
+    ring, or global)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import main as serve_main
@@ -935,12 +1027,19 @@ def phase_serve(torch, dev, spec: dict) -> dict:
     argv = ["--arch", spec["arch"], "--batch", str(spec["batch"]),
             "--prompt-len", str(spec["prompt_len"]),
             "--new-tokens", str(spec["new_tokens"]), "--seed", "0"]
+    calls = {}
     reset_launch_counts()
-    tokens, log = serve_main(argv)
+    with _attention_calls(calls):
+        tokens, log = serve_main(argv)
     torch.cuda.synchronize()
     counts = launch_counts()
     want = _serve_kernels(cfg, spec["new_tokens"])
     launches = {k: counts[k] for k in want}
+    if cfg.family == "dense":
+        want_calls = _serve_calls(cfg, spec["new_tokens"])
+        require(calls == want_calls, f"{cfg.name}: attention calls {calls}, "
+                f"not {want_calls}")
+        log["calls_by_layer"] = calls
     require(tuple(tokens.shape) == (spec["batch"], spec["new_tokens"]),
             f"{cfg.name}: tokens {tuple(tokens.shape)}")
     require(0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size,
@@ -956,9 +1055,15 @@ def phase_serve(torch, dev, spec: dict) -> dict:
 
 
 def phase_reference(torch, dev) -> None:
-    """Smoke config, same parameters on the card and on the CPU: the card's
-    degraded (OptCC) run equals its healthy (psum) run, as on 8 JAX devices
-    in tests/multidev_driver.py, and the CPU's plain-PyTorch run."""
+    """The qwen3 and gemma3 smoke configs, the same parameters on the card
+    and on the CPU: the card's degraded (OptCC) run equals its healthy
+    (psum) run, as on 8 JAX devices in tests/multidev_driver.py, and the
+    CPU's plain-PyTorch run. One line per config."""
+    for arch in ("qwen3-1.7b", "gemma3-27b"):
+        _reference_run(torch, dev, arch)
+
+
+def _reference_run(torch, dev, arch: str) -> None:
     from repro_torch.comms import LocalTransport
     from repro_torch.comms.fault import FaultState
     from repro_torch.configs import get_config
@@ -968,7 +1073,7 @@ def phase_reference(torch, dev) -> None:
     from repro_torch.optim.schedules import constant
     from repro_torch.train import TrainState, make_dp_failover_step
 
-    cfg = get_config("qwen3-1.7b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     model = build_model(cfg)
     opt = AdamWConfig(weight_decay=0.0)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
@@ -1013,19 +1118,22 @@ def phase_reference(torch, dev) -> None:
 
 
 def phase_serve_reference(torch, dev) -> dict:
-    """Both smoke configs, the same parameters on the card and on the CPU:
-    greedy tokens equal, and on the card the prefill logits and every
-    decode step's logits equal `forward`'s at the same position. The fp32
-    qwen3 smoke prefill (hd 16) is the general flash_attention route's path:
-    returns its launches in the card's generate run."""
+    """The three smoke configs, the same parameters on the card and on the
+    CPU: greedy tokens equal, and on the card the prefill logits and every
+    decode step's logits equal `forward`'s at the same position (gemma3's
+    window of 16 is passed at position 16, so its rings wrap). The fp32
+    qwen3 and gemma3 smoke prefills (hd 16) are the general
+    flash_attention route's path: returns its launches in the card's
+    generate runs."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model, rwkv6, transformer
     from repro_torch.train.serve import generate, pad_cache_to
     out = {}
+    n_general = 0
     B, prompt_len, total = 2, 12, 24
-    for arch in ("qwen3-1.7b", "rwkv6-7b"):
+    for arch in ("qwen3-1.7b", "gemma3-27b", "rwkv6-7b"):
         cfg = get_config(arch, smoke=True)
         model = build_model(cfg)
         cpu_params = model.init(5, "cpu")
@@ -1041,7 +1149,7 @@ def phase_serve_reference(torch, dev) -> dict:
                 f"{got.tolist()} != CPU tokens {want.tolist()}")
         if cfg.family == "dense":
             # fp32 prompt, 24 rows per kv head: the general route
-            n_cuda_core = counts["flash_attention"]
+            n_general += counts["flash_attention"]
             expect = {"flash_attention": cfg.n_layers, "flash_prefill": 0,
                       "flash_decode": cfg.n_layers * 7}
             require({k: counts[k] for k in expect} == expect,
@@ -1067,8 +1175,8 @@ def phase_serve_reference(torch, dev) -> dict:
                     f"{cfg.name} decode vs forward at {pos}", SERVE_TOL))
         out[cfg.name] = {"tokens_equal": True, "logits_max_abs_err": err}
     emit({"phase": "serve_reference", "limit": SERVE_TOL, **out,
-          "flash_attention_launches": n_cuda_core})
-    return {"flash_attention": n_cuda_core}
+          "flash_attention_launches": n_general})
+    return {"flash_attention": n_general}
 
 
 # ----------------------------------------------------------------------------
@@ -1212,23 +1320,35 @@ def _nbytes(*ts) -> int:
 
 
 def _flash_timing(torch, q, k, v, out, *, route: str, q_offset: int,
-                  kv_len: int, causal: bool, iters: int) -> dict:
+                  kv_len: int, causal: bool, iters: int,
+                  window: int = 0) -> dict:
     """One flash route at one shape: kernel, plain version, SDPA (the
-    library call: GQA, causal only for the prefill) and the bound: q, the
-    first kv_len keys and values, the output; 4 hd flops per visible
-    (query, key) pair, at the tensor-core bf16 rate for bf16 inputs and at
-    ATTN_FP32_FLOPS for fp32 ones (3xTF32), the bound by fp32 FMAs beside
-    it (`bound_fp32_fma_ms`)."""
+    library call: GQA, causal only for the prefill; a window as an explicit
+    boolean mask) and the bound: q, the first kv_len keys and values, the
+    output; 4 hd flops per visible (query, key) pair, at the tensor-core
+    bf16 rate for bf16 inputs and at ATTN_FP32_FLOPS for fp32 ones
+    (3xTF32), the bound by fp32 FMAs beside it (`bound_fp32_fma_ms`)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     require(kernel.pick_route(q, k, v) == route,
             f"timing: {route} is not the route of {tuple(q.shape)}")
     B, Sq, H, hd = q.shape
-    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window)
     kk, vv = k[:, :kv_len], v[:, :kv_len]
     qt, kt, vt = q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
-    pairs = sum(min(kv_len, q_offset + i + 1) if causal else kv_len
-                for i in range(Sq))
+    sdpa = dict(is_causal=causal and Sq > 1, enable_gqa=True)
+    if window > 0:
+        iq = q_offset + torch.arange(Sq, device=q.device)[:, None]
+        jk = torch.arange(kv_len, device=q.device)[None, :]
+        ok = jk > iq - window
+        sdpa = dict(attn_mask=ok & (jk <= iq) if causal else ok,
+                    enable_gqa=True)
+    pairs = 0
+    for i in range(Sq):
+        iq = q_offset + i
+        hi = min(kv_len, iq + 1) if causal else kv_len
+        lo = max(0, iq - window + 1) if window > 0 else 0
+        pairs += max(0, hi - lo)
     flops = 4 * hd * H * B * pairs
     nbytes = _nbytes(q, kk, vv, out)
     if q.dtype == torch.bfloat16:
@@ -1245,10 +1365,9 @@ def _flash_timing(torch, q, k, v, out, *, route: str, q_offset: int,
             torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3),
         **bound,
         "library_ms": _cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal and Sq > 1, enable_gqa=True),
-            iters),
+            qt, kt, vt, **sdpa), iters),
         "shape": {"q": list(q.shape), "kv": [B, kv_len] + list(k.shape[2:]),
-                  "q_offset": q_offset},
+                  "q_offset": q_offset, "causal": causal, "window": window},
         "dtype": str(q.dtype).removeprefix("torch.")}
 
 
@@ -1278,7 +1397,9 @@ def phase_serve_timing(torch, dev, errs) -> dict:
     bf16 prefill, flash_decode at a mid-decode step, the general
     flash_attention route at the same prefill in fp32 (its route: fp32
     prompts), and the general route at the smoke configs' head dim at a
-    realistic length, (8, 2048, 4/2, 16), in fp32 and bf16; wkv at
+    realistic length, (8, 2048, 4/2, 16), in fp32 and bf16; flash_prefill
+    and flash_decode at gemma3-27b's local prefill (window 1024) and ring
+    decode (1024 slots); wkv at
     rwkv6-7b's prefill and decode shapes. The `kernels` line takes
     flash_decode's decode shape, the general route's qwen3 fp32 prefill and
     wkv's prefill shape."""
@@ -1327,6 +1448,33 @@ def phase_serve_timing(torch, dev, errs) -> dict:
         torch, q, kc, vc, out, route="flash_decode", q_offset=pos,
         kv_len=pos + 1, causal=True, iters=200)
     del kc, vc, q, out
+    torch.cuda.empty_cache()
+
+    # gemma3-27b's local layers: the prefill within the window, and a
+    # decode step over a full ring (non-causal over its window of slots)
+    Bg, Sg, Hg, KVg, hdg, w = _gemma3_attn_shape()
+    q, k, v = (rand((Bg, Sg, Hg, hdg)), rand((Bg, Sg, KVg, hdg)),
+               rand((Bg, Sg, KVg, hdg)))
+    out = fops.flash_attention(q, k, v, window=w)
+    errs["flash_prefill"] = max(errs["flash_prefill"], _compare(
+        torch, out, fref.flash_attention_ref(q, k, v, window=w),
+        "timed gemma3 local prefill", FLASH_TOL["float32"], ulp=True))
+    res["gemma3_local_prefill"] = _flash_timing(
+        torch, q, k, v, out, route="flash_prefill", q_offset=0, kv_len=Sg,
+        causal=True, iters=20, window=w)
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    ring_k, ring_v = rand((Bg, w, KVg, hdg)), rand((Bg, w, KVg, hdg))
+    q = rand((Bg, 1, Hg, hdg))
+    out = fops.flash_attention(q, ring_k, ring_v, causal=False)
+    errs["flash_decode"] = max(errs["flash_decode"], _compare(
+        torch, out, fref.flash_attention_ref(q, ring_k, ring_v,
+                                             causal=False),
+        "timed gemma3 ring decode", FLASH_TOL["float32"], ulp=True))
+    res["gemma3_ring_decode"] = _flash_timing(
+        torch, q, ring_k, ring_v, out, route="flash_decode", q_offset=0,
+        kv_len=w, causal=False, iters=200)
+    del ring_k, ring_v, q, out
     torch.cuda.empty_cache()
 
     Bw, Sw, Hw, hdw = _rwkv6_wkv_shape()

@@ -1,8 +1,9 @@
 """Config registry: get_config(arch_id, smoke=False).
 
 The port knows the arch ids of the JAX registry; it brings qwen3-1.7b
-(the dense path) and rwkv6-7b (serving) and raises NotImplementedError,
-naming the slice that brings it, for the others.
+and gemma3-27b (the dense path, gemma3 with its local:global attention)
+and rwkv6-7b (serving) and raises NotImplementedError, naming the slice
+that brings it, for the others.
 """
 from __future__ import annotations
 
@@ -10,10 +11,11 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = {"qwen3-1.7b": "qwen3_1p7b", "rwkv6-7b": "rwkv6_7b"}
+_MODULES = {"qwen3-1.7b": "qwen3_1p7b", "gemma3-27b": "gemma3_27b",
+            "rwkv6-7b": "rwkv6_7b"}
 
 # arch ids of the JAX registry that a later slice of the port brings
-_LATER = ("gemma3-27b", "minicpm-2b", "internlm2-1.8b", "arctic-480b",
+_LATER = ("minicpm-2b", "internlm2-1.8b", "arctic-480b",
           "phi3.5-moe-42b-a6.6b", "hymba-1.5b", "whisper-base",
           "qwen2-vl-2b")
 

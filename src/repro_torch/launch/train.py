@@ -17,11 +17,15 @@ run resumed inside a degraded window syncs with psum until the next event.
 
 The DP members are `--dp` rows of one tensor on one device (the
 single-process transport), standing in for JAX's forced device count.
-Runs on CUDA unless `--device cpu` is given.
+Runs on CUDA unless `--device cpu` is given. gemma3-27b trains only at its
+smoke config (`--arch gemma3-27b --smoke`): its full-width train state
+(bf16 params, fp32 moments, ~270 GB) does not fit one card.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --smoke --steps 200 --fail-at 60 --repair-at 120 --device cpu \
       --ckpt-dir /tmp/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-27b \
+      --smoke --steps 6 --fail-at 2 --repair-at 4 --device cpu
 """
 from __future__ import annotations
 

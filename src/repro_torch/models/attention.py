@@ -2,10 +2,11 @@
 
 Training: a direct quadratic path and a chunked online-softmax path, plain
 PyTorch, as the JAX package computes them in jnp outside any Pallas kernel
-(the flash kernel has no backward yet). Serving: `prefill_attention` and
-`decode_attention` go through the flash-attention op, which is the Hopper
-kernel for CUDA tensors and its plain version for CPU tensors. All softmax
-math is fp32.
+(the flash kernel has no backward yet). Serving: `prefill_attention`,
+`decode_attention` and `ring_decode_attention` (a local layer's rolling
+cache) go through the flash-attention op, which is the Hopper kernel for
+CUDA tensors and its plain version for CPU tensors. All softmax math is
+fp32.
 """
 from __future__ import annotations
 
@@ -49,12 +50,17 @@ def direct_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
                       q_chunk: int = 256, kv_chunk: int = 1024,
                       q_offset: int = 0) -> torch.Tensor:
-    """Online softmax over KV blocks inside a loop over Q blocks; every KV
-    block is visited (fully masked ones add nothing).
-    q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd) -> (B,Sq,H,hd)."""
-    if window > 0:
-        raise NotImplementedError(
-            "windowed chunked attention comes with the local:global slice")
+    """Online softmax over KV blocks inside a loop over Q blocks.
+    q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd) -> (B,Sq,H,hd).
+
+    Without a window every KV block is visited (fully masked ones add
+    nothing). With one, query block qi visits a fixed count n_rel of KV
+    blocks, clip(hi_blk - rel, 0, nkv - 1) for rel < n_rel, hi_blk being
+    the block of its last causal key (the last block if not causal), and a
+    visit with rel > hi_blk adds nothing: O(S * window) work instead of
+    O(S^2). This is the JAX package's scheme, to the block; like it, a
+    non-causal windowed call visits only the n_rel blocks that end at the
+    last one."""
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
     k = _expand_kv(k, H)
@@ -74,20 +80,31 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     qb = q.reshape(B, nq, q_chunk, H, hd).permute(1, 0, 3, 2, 4)
     kb = k.reshape(B, nkv, kv_chunk, H, hd).permute(1, 0, 3, 2, 4)
     vb = v.reshape(B, nkv, kv_chunk, H, hd).permute(1, 0, 3, 2, 4)
+    if window > 0:
+        span = window + q_chunk + kv_chunk
+        n_rel = min(nkv, -(-span // kv_chunk) + 1)
     dev = q.device
     outs = []
     for qi in range(nq):
         blk = qb[qi].float()
         iq = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
+        hi_blk = ((q_offset + (qi + 1) * q_chunk - 1) // kv_chunk if causal
+                  else nkv - 1)
+        if window > 0:
+            visits = [(min(max(hi_blk - rel, 0), nkv - 1), rel <= hi_blk)
+                      for rel in range(n_rel)]
+        else:
+            visits = [(kvj, True) for kvj in range(nkv)]
         m = torch.full((B, H, q_chunk), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, H, q_chunk, hd), dtype=torch.float32,
                           device=dev)
-        for kvj in range(nkv):
+        for kvj, extra_ok in visits:
             jk = kvj * kv_chunk + torch.arange(kv_chunk, device=dev)
             s = torch.einsum("bhqd,bhkd->bhqk", blk, kb[kvj].float()) * scale
-            ok = _mask(iq, jk, causal, window) & (jk < Skv)[None, :]
+            ok = _mask(iq, jk, causal, window) & (jk < Skv)[None, :] \
+                & extra_ok
             s = torch.where(ok[None, None], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
@@ -116,10 +133,11 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
 # serving: forward only, through the flash-attention kernel
 # ----------------------------------------------------------------------------
 
-def prefill_attention(q, k, v) -> torch.Tensor:
-    """Causal attention of a prompt over its own keys (prefill).
+def prefill_attention(q, k, v, window: int = 0) -> torch.Tensor:
+    """Causal attention of a prompt over its own keys (prefill), within
+    `window` keys of each query on a local layer (window > 0).
     q: (B,S,H,hd); k,v: (B,S,KV,hd) -> (B,S,H,hd)."""
-    return flash_attention(q, k, v, causal=True)
+    return flash_attention(q, k, v, causal=True, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, pos: int) -> torch.Tensor:
@@ -129,3 +147,16 @@ def decode_attention(q, k_cache, v_cache, pos: int) -> torch.Tensor:
     of the cache. q: (B,1,H,hd) -> (B,1,H,hd)."""
     return flash_attention(q, k_cache, v_cache, causal=True, q_offset=pos,
                            kv_len=pos + 1)
+
+
+def ring_decode_attention(q, k_ring, v_ring, n_valid: int) -> torch.Tensor:
+    """One-token attention against a local layer's rolling cache
+    (B, window, KV, hd), slot s holding the key of some position p with
+    p % window == s: one non-causal flash call over the first n_valid =
+    min(pos + 1, window) slots (the ring fills slot by slot from 0; past
+    that it holds the last `window` positions, the query's own included).
+    A softmax does not depend on the order of its keys, so the slots need
+    no reordering: this equals the JAX decode's mask over the whole ring,
+    which drops exactly the slots s > pos while pos < window.
+    q: (B,1,H,hd) -> (B,1,H,hd)."""
+    return flash_attention(q, k_ring, v_ring, causal=False, kv_len=n_valid)

@@ -1,6 +1,9 @@
 """Dense decoder-only transformer: training, prefill and decode (the port of
-`repro/models/transformer.py` for qwen3-style dense models, whose layers
-are all global).
+`repro/models/transformer.py` for qwen3 and gemma3). gemma3's 5:1
+local:global attention is a per-layer flag (`layer_is_global`): a local
+layer attends within `cfg.local_window` keys, and in serving keeps a
+rolling cache of `local_window` slots (slot = position % window) where a
+global layer keeps the full sequence.
 
 Parameters are one flat dict keyed by the JAX pytree's "/"-joined paths
 ("embed", "blocks/wq", "final_norm", ...) in the pytree's leaf order (sorted
@@ -9,6 +12,7 @@ one. The layer loop is a Python loop over the unbound stacks.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -29,8 +33,6 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("MoE")
     if cfg.mrope:
         missing.append("M-RoPE")
-    if cfg.global_every > 0:
-        missing.append("local:global attention")
     if cfg.encoder_layers:
         missing.append("cross-attention")
     if cfg.remat != "none":
@@ -39,6 +41,19 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
             "runs the dense path)")
+
+
+def layer_is_global(cfg: ModelConfig) -> np.ndarray:
+    """(n_layers,) bool: every layer is global unless cfg.global_every > 0,
+    then layer l is global when (l + 1) % global_every == 0."""
+    if cfg.global_every <= 0:
+        return np.ones(cfg.n_layers, bool)
+    return np.array([(l + 1) % cfg.global_every == 0
+                     for l in range(cfg.n_layers)])
+
+
+def _layer_window(cfg: ModelConfig, is_global: bool) -> int:
+    return 0 if is_global else cfg.local_window
 
 
 # ----------------------------------------------------------------------------
@@ -117,10 +132,13 @@ def _block_tail(cfg: ModelConfig, x, bp, out):
     return x + swiglu(h, bp["w_gate"], bp["w_up"], bp["w_down"])
 
 
-def dense_block(cfg: ModelConfig, x, bp, positions, causal: bool = True):
+def dense_block(cfg: ModelConfig, x, bp, positions, is_global: bool = True,
+                causal: bool = True):
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(cfg, bp, h, positions)
-    return _block_tail(cfg, x, bp, attn.attention(q, k, v, causal=causal))
+    out = attn.attention(q, k, v, causal=causal,
+                         window=_layer_window(cfg, is_global))
+    return _block_tail(cfg, x, bp, out)
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -134,9 +152,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     # unbind once: autograd then stacks each weight's layer grads in one op
     layers = {k[len(BLOCKS):]: v.unbind(0) for k, v in params.items()
               if k.startswith(BLOCKS)}
-    for layer in range(cfg.n_layers):
+    for layer, is_global in enumerate(layer_is_global(cfg)):
         bp = {k: v[layer] for k, v in layers.items()}
-        x = dense_block(cfg, x, bp, positions)
+        x = dense_block(cfg, x, bp, positions, bool(is_global))
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -148,17 +166,43 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------------
-# serving: a full-length KV cache per (global) layer
+# serving: full caches for global layers, rolling for local ones
 # ----------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda") -> dict:
-    """k_glob / v_glob: (L, B, max_len, KV, hd) zeros in the compute dtype."""
+    """Zeros in the compute dtype, in the JAX layout: k_glob / v_glob of
+    (max(n_glob, 1), B, max_len, KV, hd) for the global layers, and, when
+    there are local layers, k_loc / v_loc of (n_loc, B, local_window, KV,
+    hd), the rings."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    is_glob = layer_is_global(cfg)
+    n_glob, n_loc = int(is_glob.sum()), int((~is_glob).sum())
     dt, dev = torch_dtype(cfg.compute_dtype), resolve_device(device)
-    return {"k_glob": torch.zeros(shape, dtype=dt, device=dev),
-            "v_glob": torch.zeros(shape, dtype=dt, device=dev)}
+    tail = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    cache = {"k_glob": torch.zeros((max(n_glob, 1),) + tail, dtype=dt,
+                                   device=dev),
+             "v_glob": torch.zeros((max(n_glob, 1),) + tail, dtype=dt,
+                                   device=dev)}
+    if n_loc:
+        ring = (n_loc, batch, cfg.local_window) + tail[2:]
+        cache["k_loc"] = torch.zeros(ring, dtype=dt, device=dev)
+        cache["v_loc"] = torch.zeros(ring, dtype=dt, device=dev)
+    return cache
+
+
+def _cache_index_maps(cfg: ModelConfig):
+    """(is_global, gi, li) per layer: gi is a global layer's index in the
+    k_glob / v_glob stack, li a local layer's in k_loc / v_loc (0 for the
+    other kind)."""
+    is_glob = layer_is_global(cfg)
+    gi, li, g, l = [], [], 0, 0
+    for flag in is_glob:
+        gi.append(g if flag else 0)
+        li.append(l if not flag else 0)
+        g += int(flag)
+        l += int(not flag)
+    return is_glob, gi, li
 
 
 def _last_logits(cfg: ModelConfig, params: dict, x) -> torch.Tensor:
@@ -171,39 +215,63 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor, pos: int):
     """One decode step. tokens: (B, 1); pos: the position of these tokens.
 
-    Writes each layer's k/v at `pos` of the cache in place (the counterpart
-    of JAX's dynamic_update_slice) and attends over entries [0, pos].
+    Writes each layer's k/v in place (the counterpart of JAX's
+    dynamic_update_slice): a global layer at `pos` of its full cache,
+    attending over entries [0, pos]; a local layer at slot pos % window of
+    its ring, attending over the ring's min(pos + 1, window) filled slots.
     Returns (logits (B, V) fp32, cache)."""
     check_supported(cfg)
     x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
     positions = torch.full(tokens.shape, pos, dtype=torch.int64,
                            device=x.device)
-    kc, vc = cache["k_glob"], cache["v_glob"]
-    for layer in range(cfg.n_layers):
+    for layer, (is_global, gidx, lidx) in enumerate(
+            zip(*_cache_index_maps(cfg))):
         bp = layer_params(params, layer)
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(cfg, bp, h, positions)
-        kc[layer, :, pos] = k[:, 0]
-        vc[layer, :, pos] = v[:, 0]
-        out = attn.decode_attention(q, kc[layer], vc[layer], pos)
+        if is_global:
+            kc, vc = cache["k_glob"][gidx], cache["v_glob"][gidx]
+            kc[:, pos] = k[:, 0]
+            vc[:, pos] = v[:, 0]
+            out = attn.decode_attention(q, kc, vc, pos)
+        else:
+            kc, vc = cache["k_loc"][lidx], cache["v_loc"][lidx]
+            w = kc.shape[1]
+            kc[:, pos % w] = k[:, 0]
+            vc[:, pos % w] = v[:, 0]
+            out = attn.ring_decode_attention(q, kc, vc, min(pos + 1, w))
         x = _block_tail(cfg, x, bp, out)
     return _last_logits(cfg, params, x), cache
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    """Full-prompt forward that also fills the KV cache.
+    """Full-prompt forward that also fills the KV caches: a global layer's
+    whole prompt, a local layer's last min(S, window) keys scattered into
+    their ring slots (position % window).
 
-    Returns (last-token logits (B, V) fp32, cache of length S)."""
+    Returns (last-token logits (B, V) fp32, cache: global caches of length
+    S, rings of `local_window` slots)."""
     check_supported(cfg)
     x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     cache = init_cache(cfg, B, S, x.device)
-    for layer in range(cfg.n_layers):
+    if "k_loc" in cache:
+        w = cfg.local_window
+        keep = min(S, w)
+        slots = torch.arange(S - keep, S, device=x.device) % w
+    for layer, (is_global, gidx, lidx) in enumerate(
+            zip(*_cache_index_maps(cfg))):
         bp = layer_params(params, layer)
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(cfg, bp, h, positions)
-        cache["k_glob"][layer] = k
-        cache["v_glob"][layer] = v
-        x = _block_tail(cfg, x, bp, attn.prefill_attention(q, k, v))
+        if is_global:
+            cache["k_glob"][gidx] = k
+            cache["v_glob"][gidx] = v
+        else:
+            cache["k_loc"][lidx].index_copy_(1, slots, k[:, S - keep:])
+            cache["v_loc"][lidx].index_copy_(1, slots, v[:, S - keep:])
+        out = attn.prefill_attention(q, k, v,
+                                     window=_layer_window(cfg, is_global))
+        x = _block_tail(cfg, x, bp, out)
     return _last_logits(cfg, params, x), cache

@@ -5,10 +5,11 @@ The JAX collectives and the DP train step need several JAX devices, and
 the tests run this file in a subprocess:
 
     python tests/jax_reference.py collectives OUT.npz
-    python tests/jax_reference.py train_step OUT.npz
+    python tests/jax_reference.py train_step OUT.npz [--arch ARCH]
     python tests/jax_reference.py elastic DIR
 
-The first two write their inputs and the JAX results to OUT.npz. `elastic`
+The first two write their inputs and the JAX results to OUT.npz
+(`train_step` on ARCH's smoke config, qwen3-1.7b by default). `elastic`
 saves JAX's initial train state as DIR/ckpt/step_0, runs the JAX launcher
 from it with a node loss (ELASTIC_ARGV) and writes the launcher's printed
 lines and final parameters to DIR/elastic.npz. Importing this module (as
@@ -83,19 +84,22 @@ def collectives(out_path: str) -> None:
     np.savez(out_path, **res)
 
 
-def train_config():
+TRAIN_ARCH = "qwen3-1.7b"
+
+
+def train_config(arch: str = TRAIN_ARCH):
     from repro.configs import get_config
-    return get_config("qwen3-1.7b", smoke=True)
+    return get_config(arch, smoke=True)
 
 
-def train_data():
+def train_data(arch: str = TRAIN_ARCH):
     from repro.data import DataConfig, SyntheticLM
-    cfg = train_config()
+    cfg = train_config(arch)
     return SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
                                   global_batch=8))
 
 
-def train_step(out_path: str) -> None:
+def train_step(out_path: str, arch: str = TRAIN_ARCH) -> None:
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -106,10 +110,10 @@ def train_step(out_path: str) -> None:
     from repro.optim.schedules import constant
     from repro.train import init_train_state, make_dp_failover_step
     assert jax.device_count() == P, jax.device_count()
-    model = build_model(train_config())
+    model = build_model(train_config(arch))
     opt = AdamWConfig(weight_decay=0.01)
     mesh = Mesh(np.array(jax.devices()), ("data",))
-    data = train_data()
+    data = train_data(arch)
     init = init_train_state(model, opt, seed=0)
     res = flat_numpy(init.params, "init/")
     for name, fault in (("healthy", FaultState(P)),
@@ -154,5 +158,14 @@ if __name__ == "__main__":
         f"--xla_force_host_platform_device_count={P} "
         + os.environ.get("XLA_FLAGS", ""))
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    {"collectives": collectives, "train_step": train_step,
-     "elastic": elastic}[sys.argv[1]](sys.argv[2])
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("what", choices=["collectives", "train_step", "elastic"])
+    ap.add_argument("out")
+    ap.add_argument("--arch", default=TRAIN_ARCH,
+                    help="train_step's config (its smoke variant)")
+    args = ap.parse_args()
+    if args.what == "train_step":
+        train_step(args.out, args.arch)
+    else:
+        {"collectives": collectives, "elastic": elastic}[args.what](args.out)

@@ -28,7 +28,8 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 for mod in ("kernels.chunk_reduce.kernel", "kernels.flash_attention.kernel",
             "kernels.wkv.kernel", "models.rwkv6", "train.serve",
-            "launch.serve", "configs.rwkv6_7b", "checkpoint.ckpt",
+            "launch.serve", "configs.rwkv6_7b", "configs.gemma3_27b",
+            "checkpoint.ckpt",
             "checkpoint._msgpack"):
     assert "repro_torch." + mod in names, mod
 print("IMPORTED", len(names))

@@ -1,6 +1,10 @@
 """The port's dense model against the JAX model: loss and every gradient
 leaf from the same parameters (JAX init, converted) and the same batch, in
-fp32; the long-sequence attention path; the weight conversion."""
+fp32; the long-sequence attention path; the weight conversion; the ported
+configs field by field; the init's fp32 temporaries."""
+import dataclasses
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +25,7 @@ from repro_torch.convert import (opt_state_from_numpy,  # noqa: E402
                                  opt_state_to_numpy, params_from_numpy,
                                  params_to_numpy)
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.common import init_dense  # noqa: E402
 from jax_reference import flat_numpy  # noqa: E402
 
 # tiny config whose 1100-token sequence takes the chunked attention path
@@ -109,7 +114,7 @@ def test_convert_round_trip_is_bit_exact_bf16_included():
 
 
 def test_configs_of_later_slices_raise():
-    ported = ("qwen3-1.7b", "rwkv6-7b")
+    ported = ("qwen3-1.7b", "gemma3-27b", "rwkv6-7b")
     assert set(ported) <= set(ARCH_IDS) and len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         if arch not in ported:
@@ -119,3 +124,53 @@ def test_configs_of_later_slices_raise():
         get_config("no-such-arch")
     with pytest.raises(NotImplementedError):
         build_model(get_config("qwen3-1.7b").replace(n_experts=4))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-27b", "rwkv6-7b"])
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+def test_ported_configs_equal_jax_field_by_field(arch, smoke):
+    ours = dataclasses.asdict(get_config(arch, smoke=smoke))
+    theirs = dataclasses.asdict(jax_get_config(arch, smoke=smoke))
+    assert ours == theirs
+
+
+class _LiveFp32(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts, through every aten op, the fp32 tensors that the ops newly
+    allocate (outputs whose storage is not an input's) and are still
+    alive, and keeps the peak of their bytes."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = weakref.WeakSet()
+        self.peak = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        inputs = {t.untyped_storage().data_ptr()
+                  for t in torch.utils._pytree.tree_leaves((args, kwargs))
+                  if isinstance(t, torch.Tensor)}
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.dtype == torch.float32 \
+                    and t.untyped_storage().data_ptr() not in inputs:
+                self.live.add(t)
+        self.peak = max(self.peak, sum(t.untyped_storage().nbytes()
+                                       for t in self.live))
+        return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_init_dense_holds_one_layer_slice_in_fp32(dtype):
+    """A stacked (L, a, b) leaf is drawn one (a, b) slice at a time: the
+    fp32 tensors alive at once are one slice (and, for an fp32 leaf, the
+    result), never the whole leaf, which at gemma3-27b's w_gate would be
+    28.7 GB beside its 14.3 GB bf16 result. The values do not depend on
+    that: they equal one draw of the whole leaf from the same seed."""
+    L, a, b = 6, 64, 96
+    gen = torch.Generator().manual_seed(0)
+    with _LiveFp32() as mode:
+        got = init_dense((L, a, b), gen, dtype=dtype)
+    slice_bytes = a * b * 4
+    result = got.numel() * 4 if dtype == torch.float32 else 0
+    assert mode.peak == result + slice_bytes
+    whole = torch.randn((L, a, b), generator=torch.Generator().manual_seed(0))
+    assert torch.equal(got, (whole * (1.0 / np.sqrt(L))).to(dtype))

@@ -1,7 +1,8 @@
 """The port's serving path against the JAX package, for the smoke configs
-of both ported families: parameters from the JAX `init` go through
-`convert.py`; then prefill logits, every decode step's logits and cache,
-and the greedy tokens of `generate` are held against JAX's (2e-4, as
+of the served archs (qwen3, gemma3 with its rolling local caches, rwkv6):
+parameters from the JAX `init` go through `convert.py`; then prefill
+logits, every decode step's logits and cache, and the greedy tokens of
+`generate` are held against JAX's (2e-4, as
 tests/test_serve_equivalence.py). For rwkv6 the JAX side runs both its
 scan and its Pallas wkv kernel (interpret mode). Also: decode matches the
 port's own forward, `pad_cache_to`, the launcher on the CPU, and on the
@@ -26,8 +27,12 @@ from jax_reference import flat_numpy  # noqa: E402
 TOL = 2e-4
 B, PROMPT, TOTAL = 2, 12, 20
 # (arch, JAX rwkv6 runs its Pallas wkv kernel)
-CASES = [("qwen3-1.7b", False), ("rwkv6-7b", False), ("rwkv6-7b", True)]
-IDS = ["qwen3", "rwkv6-scan", "rwkv6-wkv-kernel"]
+CASES = [("qwen3-1.7b", False), ("gemma3-27b", False), ("rwkv6-7b", False),
+         ("rwkv6-7b", True)]
+IDS = ["qwen3", "gemma3", "rwkv6-scan", "rwkv6-wkv-kernel"]
+# the smoke configs of the served archs (gemma3's window of 16 wraps its
+# rings before TOTAL)
+ARCHS = ["qwen3-1.7b", "gemma3-27b", "rwkv6-7b"]
 
 
 @pytest.fixture(scope="module")
@@ -129,7 +134,7 @@ def _forward_logits(cfg, params, tokens):
         @ transformer.unembed_matrix(cfg, params).float()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
     """Prefill the first half and decode the rest token by token: the
     logits equal the teacher-forced forward's at the same positions
@@ -150,7 +155,7 @@ def test_decode_matches_forward(arch):
             _close(lg, _np(full[:, pos]), f"decode vs forward at {pos}")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_serve_step_is_the_argmax_of_decode_step(arch):
     model = build_model(get_config(arch, smoke=True))
     params = model.init(4, "cpu")
@@ -168,11 +173,14 @@ def test_serve_step_is_the_argmax_of_decode_step(arch):
 def test_pad_cache_to_grows_only_full_sequence_caches():
     kv = torch.ones((2, 3, 5, 2, 4))
     state = torch.ones((2, 3, 4, 4, 4))
-    out = pad_cache_to({"k_glob": kv, "v_glob": kv, "wkv": state}, 9)
+    ring = torch.ones((4, 3, 4, 2, 4))
+    out = pad_cache_to({"k_glob": kv, "v_glob": kv, "wkv": state,
+                        "k_loc": ring, "v_loc": ring}, 9)
     assert out["k_glob"].shape == (2, 3, 9, 2, 4)
     assert torch.equal(out["v_glob"][:, :, :5], kv)
     assert not out["v_glob"][:, :, 5:].any()
     assert out["wkv"] is state
+    assert out["k_loc"] is ring and out["v_loc"] is ring
     assert pad_cache_to({"k_glob": kv}, 4)["k_glob"] is kv
 
 
@@ -206,7 +214,7 @@ def test_rwkv6_training_is_not_ported_yet():
         model.loss({}, {})
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_launch_serve_on_cpu(arch):
     tokens, log = serve_main(["--arch", arch, "--smoke", "--device", "cpu",
                               "--batch", "2", "--prompt-len", "8",
@@ -225,7 +233,7 @@ def test_launch_serve_on_cpu(arch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_cuda_serve_matches_cpu(arch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
@@ -238,8 +246,8 @@ def test_cuda_serve_matches_cpu(arch):
     tokens, log = serve_main(["--arch", arch, "--smoke", "--batch", "2",
                               "--prompt-len", "8", "--new-tokens", "4"])
     # one kernel launch per layer in the prefill and each decode step; for
-    # qwen3 any of the flash routes (this 8-token prompt of 2 heads per kv
-    # head is 16 rows: flash_decode's)
+    # qwen3 and gemma3 any of the flash routes (this 8-token prompt of 2
+    # heads per kv head is 16 rows: flash_decode's)
     names = (("wkv",) if arch == "rwkv6-7b" else
              ("flash_attention", "flash_prefill", "flash_decode"))
     assert tokens.is_cuda and sum(log["launches"][k] for k in names) \

@@ -43,8 +43,10 @@ def jax_run(tmp_path_factory):
     return dict(np.load(out))
 
 
-def _port_run(res, fault):
-    model = build_model(get_config("qwen3-1.7b", smoke=True))
+def port_run(res, fault, arch=drv.TRAIN_ARCH):
+    """The port's DP step from the JAX run's initial parameters, on the
+    same batches: (losses, grad norms, final params as numpy)."""
+    model = build_model(get_config(arch, smoke=True))
     opt = AdamWConfig(weight_decay=0.01)
     params = params_from_numpy(
         {k[len("init/"):]: v for k, v in res.items()
@@ -52,7 +54,7 @@ def _port_run(res, fault):
     state = TrainState(params, init_state(params, opt), 0)
     step = make_dp_failover_step(model, LocalTransport(drv.P), opt,
                                  constant(drv.TRAIN_LR), fault)
-    data = drv.train_data()
+    data = drv.train_data(arch)
     losses, gnorms = [], []
     for i in range(drv.TRAIN_STEPS):
         batch = {k: torch.from_numpy(v).long()
@@ -67,8 +69,8 @@ def _port_run(res, fault):
 
 @pytest.fixture(scope="module")
 def port_runs(jax_run):
-    return {"healthy": _port_run(jax_run, FaultState(drv.P)),
-            "degraded": _port_run(jax_run, FaultState(drv.P, *drv.DEGRADED))}
+    return {"healthy": port_run(jax_run, FaultState(drv.P)),
+            "degraded": port_run(jax_run, FaultState(drv.P, *drv.DEGRADED))}
 
 
 @pytest.mark.parametrize("mode", ["healthy", "degraded"])

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Profile qwen3-1.7b serving steps of one checkout of the port on one CUDA
-card: the warm prefill, and decode steps split into host enqueue time and
-device kernel time.
+"""Profile the serving steps of one checkout of the port on one CUDA card:
+the warm prefill, and decode steps split into host enqueue time and device
+kernel time.
 
-    python3 tools/serve_step_profile.py [--src DIR] [--tag NAME]
+    python3 tools/serve_step_profile.py [--arch ARCH] [--src DIR] [--tag NAME]
 
 --src is the `src` directory of the checkout to measure (default: this
 one's), so that two commits can be compared on one card in turns, e.g. with
@@ -13,13 +13,15 @@ a parent unpacked by `git archive` into the gitignored `build/parent`:
       python3 tools/serve_step_profile.py --tag $s \\
         --src $([ $s = parent ] && echo build/parent/src || echo src); done
 
-Full width and depth, batch 8, prompt 2048, random weights from seed 0.
-The prefill is run twice and the second is timed (synchronized). Then 5
-decode steps warm up, 15 are timed one by one (host clock; the step's host
-enqueue time, then its wall time to a synchronize after the greedy argmax),
-and 5 more run under torch.profiler for the device time of each kernel. One
-JSON line: medians in ms, and the 8 largest device times and 12 largest host
-self times per step in us.
+Full width and depth at `chip_smoke.py`'s serve shapes (qwen3-1.7b, the
+default: batch 8, prompt 2048, 64 new tokens; gemma3-27b: batch 4, prompt
+2048, 32 new tokens), random weights from seed 0. The prefill is run twice
+and the second is timed (synchronized). Then 5 decode steps warm up, 15 are
+timed one by one (host clock; the step's host enqueue time, then its wall
+time to a synchronize after the greedy argmax), and 5 more run under
+torch.profiler for the device time of each kernel. One JSON line: medians
+in ms, the device time of all kernels per step in ms, and the 8 largest
+device times and 12 largest host self times per step in us.
 """
 from __future__ import annotations
 
@@ -30,10 +32,12 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+SHAPES = {"qwen3-1.7b": (8, 2048, 64), "gemma3-27b": (4, 2048, 32)}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=sorted(SHAPES))
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
@@ -45,10 +49,10 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    cfg = get_config("qwen3-1.7b")
+    cfg = get_config(args.arch)
     model = build_model(cfg)
     params = model.init(0, "cuda")
-    B, S, n_new = 8, 2048, 64
+    B, S, n_new = SHAPES[args.arch]
     toks = torch.randint(0, cfg.vocab_size, (B, S + n_new),
                          generator=torch.Generator().manual_seed(0)).cuda()
     state = {"pos": S}
@@ -86,6 +90,8 @@ def main() -> None:
                 step().argmax(-1)
             torch.cuda.synchronize()
     events = prof.key_averages()
+    kernels_us = sum(e.device_time_total for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
     dev = sorted(((e.key, e.device_time_total / 5) for e in events
                   if e.device_time_total > 0), key=lambda x: -x[1])
     cpu = sorted(((e.key, e.self_cpu_time_total / 5) for e in events
@@ -95,10 +101,12 @@ def main() -> None:
         return sorted(x)[len(x) // 2]
 
     print(json.dumps({
-        "tag": args.tag, "device": torch.cuda.get_device_name(0),
+        "tag": args.tag, "arch": cfg.name,
+        "device": torch.cuda.get_device_name(0),
         "prefill_s_warm": prefill_s,
         "step_wall_ms_median": median(walls) * 1e3,
         "step_host_enqueue_ms_median": median(hosts) * 1e3,
+        "step_device_ms": kernels_us / 5 / 1e3,
         "top_device_us_per_step": [(k[:60], round(d, 1)) for k, d in dev[:8]],
         "top_host_self_us_per_step": [(k[:50], round(c, 1))
                                       for k, c in cpu[:12]]}), flush=True)

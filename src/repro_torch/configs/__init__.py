@@ -1,9 +1,11 @@
 """Config registry: get_config(arch_id, smoke=False).
 
-The port knows the arch ids of the JAX registry; it brings qwen3-1.7b
-and gemma3-27b (the dense path, gemma3 with its local:global attention)
-and rwkv6-7b (serving) and raises NotImplementedError, naming the slice
-that brings it, for the others.
+The port knows the arch ids of the JAX registry; it brings the dense
+decoders qwen3-1.7b, gemma3-27b (with its local:global attention),
+internlm2-1.8b (untied head) and minicpm-2b, the vlm qwen2-vl-2b (the same
+decoder with M-RoPE and a patch-embedding prefix) and rwkv6-7b (serving),
+and raises NotImplementedError, naming the slice that brings it, for the
+others (MoE, hybrid and encoder-decoder families).
 """
 from __future__ import annotations
 
@@ -12,12 +14,12 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {"qwen3-1.7b": "qwen3_1p7b", "gemma3-27b": "gemma3_27b",
-            "rwkv6-7b": "rwkv6_7b"}
+            "rwkv6-7b": "rwkv6_7b", "internlm2-1.8b": "internlm2_1p8b",
+            "minicpm-2b": "minicpm_2b", "qwen2-vl-2b": "qwen2_vl_2b"}
 
 # arch ids of the JAX registry that a later slice of the port brings
-_LATER = ("minicpm-2b", "internlm2-1.8b", "arctic-480b",
-          "phi3.5-moe-42b-a6.6b", "hymba-1.5b", "whisper-base",
-          "qwen2-vl-2b")
+_LATER = ("arctic-480b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b",
+          "whisper-base")
 
 ARCH_IDS = tuple(_MODULES) + tuple(_LATER)
 

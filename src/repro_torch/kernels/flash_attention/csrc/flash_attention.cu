@@ -18,8 +18,8 @@
 // Where it runs: the route of kernel.py sends bf16 prompts at hd 64 / 128 to
 // flash_prefill.cu and every aligned call with at most 16 rows per kv head to
 // flash_decode.cu. This kernel takes the rest: prompts in fp32, prompts at the
-// small head dims, and addresses or strides that are not multiples of 16
-// bytes.
+// small head dims, addresses or strides that are not multiples of 16 bytes,
+// and every call at head dim 12 (flash_decode has no instance for it).
 //
 // What bounds it on an H100: the operations, 4 hd flops per visible (query,
 // key) pair against a few bytes per pair. Both products run on the tensor
@@ -70,6 +70,16 @@
 // ALIGNED): 16-byte cp.async, else 4-byte cp.async for fp32 or plain loads
 // for bf16, into the same layout. Rows past the CTA's last key are
 // zero-filled.
+//
+// Head dim 12 (HD not a multiple of the MMA's 8). The MMAs run at
+// HDP = 16 columns: Q's registers for columns 12-15 hold 0, and columns
+// 12-15 of every K and V row of the ring are zeroed once at the start and
+// never written after (the staging copies only the 12 real columns). A
+// zero K column adds exactly 0 to q k^T, so the scores, the row max and the
+// row sum are those of the 12 columns; p v's columns 12-15 are computed and
+// never stored. A 48-byte fp32 row is three 16-byte copies; a 24-byte bf16
+// row is not a whole number of them, so bf16 at hd 12 stages by plain
+// loads whatever the alignment.
 //
 // Softmax in base 2 (scale * log2 e folded into one multiply), in registers;
 // a row's max is reduced over its 4 lanes by two shuffles, its sum is kept
@@ -125,9 +135,17 @@ struct Args {
   float scale_log2;  // scale * log2(e)
 };
 
+// the MMAs' width: HD rounded up to the 8 columns of a k-step / dim tile
+template <int HD>
+constexpr int kHDP = (HD + 7) / 8 * 8;
+// K / V rows stage by 16-byte copies only if a row is a whole number of them
+template <typename T, int HD>
+constexpr bool kVecRows = HD * static_cast<int>(sizeof(T)) % 16 == 0;
+
 template <typename T, int HD, int WARPS>
 struct Plan {
-  static constexpr int row_bytes = HD * static_cast<int>(sizeof(T)) + 16;
+  static constexpr int HDP = kHDP<HD>;
+  static constexpr int row_bytes = HDP * static_cast<int>(sizeof(T)) + 16;
   static constexpr int RS = row_bytes / static_cast<int>(sizeof(T));  // row stride, elements
   static constexpr int tile = kBKV * row_bytes;
   static constexpr int stage = 2 * tile;  // K, then V
@@ -220,7 +238,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// K then V rows kb .. kb + kBKV - 1 into one stage; rows at or past hi read as 0
+// K then V rows kb .. kb + kBKV - 1 into one stage (the HD real columns);
+// rows at or past hi read as 0
 template <typename T, int HD, int WARPS, bool ALIGNED>
 __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ k,
                                           const T* __restrict__ v, int64_t kb, int64_t hi,
@@ -255,7 +274,8 @@ template <typename T, int HD, int WARPS, bool ALIGNED>
 __global__ void __launch_bounds__(WARPS * 32, 8 / WARPS) flash_tc_kernel(const Args a) {
   using P = Plan<T, HD, WARPS>;
   constexpr int RS = P::RS;
-  constexpr int KD = HD / 8;    // k-steps of q k^T; dim tiles of p v
+  constexpr int HDP = P::HDP;
+  constexpr int KD = HDP / 8;   // k-steps of q k^T; dim tiles of p v
   constexpr int NT = kBKV / 8;  // key tiles of q k^T; k-steps of p v
   constexpr int DG = KD < 2 ? KD : 2;  // dim tiles per group of p v MMAs
   constexpr int BQ = WARPS * 16;
@@ -289,6 +309,12 @@ __global__ void __launch_bounds__(WARPS * 32, 8 / WARPS) flash_tc_kernel(const A
   if (a.window > 0) lo = imax(lo, a.q_offset + i_min - a.window + 1);
   lo = lo / kBKV * kBKV;
   const int n_tiles = static_cast<int>((hi - lo + kBKV - 1) / kBKV);
+
+  // the columns past HD of every ring row: zero, never written again
+  if constexpr (HDP != HD) {
+    for (int idx = tid; idx < kStages * 2 * kBKV * (HDP - HD); idx += WARPS * 32)
+      ring[idx / (HDP - HD) * RS + HD + idx % (HDP - HD)] = from_f32<T>(0.0f);
+  }
 
   // start the ring before anything else
 #pragma unroll
@@ -326,7 +352,8 @@ __global__ void __launch_bounds__(WARPS * 32, 8 / WARPS) flash_tc_kernel(const A
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int h2 = e & 1;
-      qf[ks][e] = row_ok[h2] ? to_f32(qrow[h2][ks * 8 + tq + 4 * (e >> 1)]) : 0.0f;
+      const int col = ks * 8 + tq + 4 * (e >> 1);
+      qf[ks][e] = row_ok[h2] && col < HD ? to_f32(qrow[h2][col]) : 0.0f;
     }
 
   float m[2] = {kNegInf, kNegInf};
@@ -465,8 +492,10 @@ __global__ void __launch_bounds__(WARPS * 32, 8 / WARPS) flash_tc_kernel(const A
     const float inv = 1.0f / fmaxf(lsum, 1e-30f);
 #pragma unroll
     for (int dn = 0; dn < KD; ++dn) {
-      orow[dn * 8 + 2 * tq] = from_f32<T>(acc[dn][2 * h2] * inv);
-      orow[dn * 8 + 2 * tq + 1] = from_f32<T>(acc[dn][2 * h2 + 1] * inv);
+      const int col = dn * 8 + 2 * tq;  // HD is even: col + 1 < HD with col
+      if (col >= HD) continue;
+      orow[col] = from_f32<T>(acc[dn][2 * h2] * inv);
+      orow[col + 1] = from_f32<T>(acc[dn][2 * h2 + 1] * inv);
     }
   }
 }
@@ -493,9 +522,12 @@ cudaError_t launch(const Args& a, int64_t B, int64_t KV, cudaStream_t stream) {
 
 template <typename T, int HD>
 cudaError_t launch_plan(const Args& a, bool aligned, int64_t B, int64_t KV, cudaStream_t s) {
-  // at most 16 slots (an unaligned decode step): one warp, the unaligned staging
+  // at most 16 slots (an unaligned decode step, or one at hd 12): one warp,
+  // the unaligned staging
   if (a.Sq * a.rep <= 16) return launch<T, HD, 1, false>(a, B, KV, s);
-  if (aligned) return launch<T, HD, kWarps, true>(a, B, KV, s);
+  if constexpr (kVecRows<T, HD>) {
+    if (aligned) return launch<T, HD, kWarps, true>(a, B, KV, s);
+  }
   return launch<T, HD, kWarps, false>(a, B, KV, s);
 }
 
@@ -504,6 +536,7 @@ cudaError_t launch_hd(const Args& a, int64_t hd, bool aligned, int64_t B, int64_
                       cudaStream_t s) {
   switch (hd) {
     case 8: return launch_plan<T, 8>(a, aligned, B, KV, s);
+    case 12: return launch_plan<T, 12>(a, aligned, B, KV, s);
     case 16: return launch_plan<T, 16>(a, aligned, B, KV, s);
     case 32: return launch_plan<T, 32>(a, aligned, B, KV, s);
     case 64: return launch_plan<T, 64>(a, aligned, B, KV, s);

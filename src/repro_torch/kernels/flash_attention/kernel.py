@@ -2,14 +2,23 @@
 the rule that picks one of them for a call.
 
 - `flash_decode` (csrc/flash_decode.cu): at most 16 rows per kv head
-  (Sq x H / KV, a decode step), any dtype and head dim; the keys are split
-  over CTAs and the partials combined in split order.
+  (Sq x H / KV, a decode step), either dtype, at the head dims that are a
+  multiple of 8 (DECODE_HEAD_DIMS); the keys are split over CTAs and the
+  partials combined in split order.
 - `flash_prefill` (csrc/flash_prefill.cu): bf16 at hd 64 or 128, both
   products on the tensor cores (wgmma).
 - `flash_attention` (csrc/flash_attention.cu), the general route:
-  everything else (fp32 prompts, the small head dims, unaligned strides),
-  both products on the tensor cores as mma.sync TF32, fp32 operands split
-  into hi + lo ("3xTF32").
+  everything else (fp32 prompts, the small head dims, unaligned strides,
+  and every call at head dim 12, decode steps included), both products on
+  the tensor cores as mma.sync TF32, fp32 operands split into hi + lo
+  ("3xTF32").
+
+Head dim 12 (minicpm-2b's and qwen2-vl-2b's smoke configs, d 72 / 6 heads
+and d 48 / 4 heads; no full-width config has it) goes to the general route
+whatever the rows: its kernel pads the MMA width to 16 with zero columns.
+flash_decode keeps a key row in 16-byte vectors, `Shape::NDV = HD / VE`
+lanes a row, and has no hd-12 instance; an fp32 hd-12 row of 48 bytes
+would pass the alignment test, so `route` checks the head dim first.
 
 `route` decides on the host, before any launch, from the dtype, the head
 dim, the rows per kv head and the byte alignment of the addresses and
@@ -36,8 +45,9 @@ import torch
 from repro_torch import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 12, 16, 32, 64, 128)
 PREFILL_HEAD_DIMS = (64, 128)   # flash_prefill's templates
+DECODE_HEAD_DIMS = (8, 16, 32, 64, 128)   # flash_decode's
 DECODE_MAX_ROWS = 16            # flash_decode keeps a group's rows in registers
 ALIGN = 16                      # bytes of one vector load / cp.async
 # the decode split: about this many CTAs per SM (at qwen3-1.7b's decode on
@@ -66,9 +76,10 @@ def route(dtype: torch.dtype, hd: int, rows: int, byte_steps) -> str:
     share a kv head); `byte_steps` are the base addresses and the (batch,
     sequence, head) strides of q, k and v, in bytes. flash_prefill and
     flash_decode read 16-byte vectors, so they need every one of them
-    aligned to 16."""
+    aligned to 16, and each takes only the head dims it has a template
+    for."""
     aligned = all(int(s) % ALIGN == 0 for s in byte_steps)
-    if rows <= DECODE_MAX_ROWS and aligned:
+    if rows <= DECODE_MAX_ROWS and aligned and hd in DECODE_HEAD_DIMS:
         return "flash_decode"
     if dtype == torch.bfloat16 and hd in PREFILL_HEAD_DIMS and aligned:
         return "flash_prefill"
@@ -79,16 +90,20 @@ def general_plan(hd: int, itemsize: int, rows: int, aligned: bool) -> dict:
     """The general route's launch for one (b, kv head) of `rows` row slots
     (Sq x H / KV): CTAs of GENERAL_WARPS warps of 16 slots, or of one warp
     for at most 16 slots; K / V tiles of GENERAL_BKV keys in a ring of
-    GENERAL_STAGES, each row padded by 16 bytes, in the input's type;
-    staged by 16-byte cp.async when `aligned` (and more than one warp),
-    else by 4-byte cp.async (fp32) or plain loads (bf16)."""
+    GENERAL_STAGES, each row `mma_hd` wide (hd rounded up to the MMA's 8;
+    the columns past hd are zeros) and padded by 16 bytes, in the input's
+    type; staged by 16-byte cp.async when `aligned`, more than one warp
+    and a row a whole number of 16-byte vectors, else by 4-byte cp.async
+    (fp32) or plain loads (bf16)."""
     warps = 1 if rows <= DECODE_MAX_ROWS else GENERAL_WARPS
-    row_bytes = hd * itemsize + 16
-    if aligned and warps > 1:
+    mma_hd = -(-hd // 8) * 8
+    row_bytes = mma_hd * itemsize + 16
+    if aligned and warps > 1 and hd * itemsize % ALIGN == 0:
         staging = "cp.async 16"
     else:
         staging = "cp.async 4" if itemsize == 4 else "load"
     return {"warps": warps, "rows": 16 * warps, "bkv": GENERAL_BKV,
+            "mma_hd": mma_hd,
             "stages": GENERAL_STAGES, "row_bytes": row_bytes,
             "smem": GENERAL_STAGES * 2 * GENERAL_BKV * row_bytes,
             "grid_x": -(-rows // (16 * warps)), "staging": staging}

@@ -3,11 +3,12 @@ port's counterpart of `examples/serve_decode.py`).
 
 Random parameters from `--seed` (a torch generator on the run's device) and
 random prompt tokens from the same seed (a CPU generator). Runs on CUDA
-unless `--device cpu` is given; on CUDA every attention of qwen3 and
-gemma3 goes through the flash-attention kernels (gemma3's local layers
-with their window in the prefill and over their rolling caches in decode)
-and every rwkv6 recurrence through the wkv kernel. gemma3-27b at full
-width (54.0 GB of bf16 weights) fits one 80 GB card.
+unless `--device cpu` is given; on CUDA every attention of the dense and
+vlm decoders (qwen3, internlm2, minicpm, gemma3, qwen2-vl) goes through the
+flash-attention kernels (gemma3's local layers with their window in the
+prefill and over their rolling caches in decode; qwen2-vl's prompt is text,
+its M-RoPE ids equal) and every rwkv6 recurrence through the wkv kernel.
+gemma3-27b at full width (54.0 GB of bf16 weights) fits one 80 GB card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --smoke --device cpu
@@ -15,6 +16,7 @@ width (54.0 GB of bf16 weights) fits one 80 GB card.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --smoke --device cpu
+  (likewise --arch internlm2-1.8b, minicpm-2b or qwen2-vl-2b)
 """
 from __future__ import annotations
 

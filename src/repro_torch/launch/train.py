@@ -17,15 +17,22 @@ run resumed inside a degraded window syncs with psum until the next event.
 
 The DP members are `--dp` rows of one tensor on one device (the
 single-process transport), standing in for JAX's forced device count.
-Runs on CUDA unless `--device cpu` is given. gemma3-27b trains only at its
-smoke config (`--arch gemma3-27b --smoke`): its full-width train state
-(bf16 params, fp32 moments, ~270 GB) does not fit one card.
+Runs on CUDA unless `--device cpu` is given. qwen3-1.7b and internlm2-1.8b
+train at full width on one card; qwen2-vl-2b trains on text batches (no
+patch prefix, as the JAX launcher). gemma3-27b and minicpm-2b train only at
+their smoke configs (`--smoke`): gemma3's full-width train state (bf16
+params, fp32 moments, ~270 GB) does not fit one card, and neither does
+minicpm-2b's at DP 4 (2.72e9 params, ~78 GiB by scaling qwen3-1.7b's
+49.29 GiB peak with the parameter count).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --smoke --steps 200 --fail-at 60 --repair-at 120 --device cpu \
       --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-27b \
       --smoke --steps 6 --fail-at 2 --repair-at 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
+      --smoke --steps 6 --fail-at 2 --repair-at 4 --device cpu
+  (likewise --arch minicpm-2b or --arch qwen2-vl-2b)
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Model API: build_model(cfg) -> Model with init/loss/prefill/decode_step/
-init_cache (the port of `repro/models/api.py` for the dense and rwkv6
-families).
+init_cache (the port of `repro/models/api.py` for the dense, vlm and rwkv6
+families; dense and vlm share the transformer, as in the JAX package).
 
+  loss:        (params, {tokens, labels, [positions], [prefix_embeds]})
   prefill:     (params, {tokens (B,S)}) -> (logits (B,V) fp32, cache)
   decode_step: (params, cache, tokens (B,1), pos int) -> (logits, cache)
   init_cache:  (batch, max_len, device="cuda") -> cache

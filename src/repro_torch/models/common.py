@@ -1,5 +1,5 @@
-"""Shared building blocks: norms, RoPE, the SwiGLU MLP, embeddings, the
-vocab-chunked loss and the dense init (the port of
+"""Shared building blocks: norms, RoPE and Qwen2-VL's M-RoPE, the SwiGLU
+MLP, embeddings, the vocab-chunked loss and the dense init (the port of
 `repro/models/common.py`'s dense-path functions)."""
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------------
-# Rotary embeddings
+# Rotary embeddings (standard + Qwen2-VL M-RoPE)
 # ----------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float,
@@ -53,6 +53,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     (x1, x2) of the head dim, not interleaved pairs."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)     # (hd/2,)
     ang = positions[..., None].float() * freqs           # (B,S,hd/2)
+    cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+def mrope_sections(head_dim: int, sections=(16, 24, 24)) -> np.ndarray:
+    """The (t, h, w) split of the hd/2 frequency channels: `sections`
+    scaled to hd/2 (floored), the last taking the remainder."""
+    half = head_dim // 2
+    secs = np.asarray(sections, dtype=np.int64)
+    secs = secs * half // secs.sum()
+    secs[-1] = half - secs[:-1].sum()
+    return secs
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: x (B, S, H, hd); positions (B, S, 3) =
+    (t, h, w) ids. Frequency channel c of the hd/2 is rotated by the id of
+    its section (`mrope_sections`); text tokens carry equal ids in all
+    three, which reduces it to `apply_rope`."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)     # (hd/2,)
+    sel = np.repeat(np.arange(3), mrope_sections(x.shape[-1], sections))
+    pos = positions.float()[..., torch.from_numpy(sel).to(x.device)]
+    ang = pos * freqs                                    # (B,S,hd/2)
     cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)

@@ -1,9 +1,13 @@
 """Dense decoder-only transformer: training, prefill and decode (the port of
-`repro/models/transformer.py` for qwen3 and gemma3). gemma3's 5:1
-local:global attention is a per-layer flag (`layer_is_global`): a local
-layer attends within `cfg.local_window` keys, and in serving keeps a
-rolling cache of `local_window` slots (slot = position % window) where a
-global layer keeps the full sequence.
+`repro/models/transformer.py` for qwen3, internlm2, minicpm, gemma3 and
+qwen2-vl). gemma3's 5:1 local:global attention is a per-layer flag
+(`layer_is_global`): a local layer attends within `cfg.local_window` keys,
+and in serving keeps a rolling cache of `local_window` slots (slot =
+position % window) where a global layer keeps the full sequence. qwen2-vl
+(family "vlm", `cfg.mrope`) rotates q and k by M-RoPE over (B, S, 3)
+(t, h, w) positions, arange stacked 3x for text, and its `forward` /
+`loss_fn` take an optional `prefix_embeds` (B, P, d) patch prefix placed
+before the token embeddings, whose label positions are masked (-100).
 
 Parameters are one flat dict keyed by the JAX pytree's "/"-joined paths
 ("embed", "blocks/wq", "final_norm", ...) in the pytree's leaf order (sorted
@@ -18,7 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (BLOCKS, apply_rope,
+from repro_torch.models.common import (BLOCKS, apply_mrope, apply_rope,
                                        chunked_softmax_xent, embed_tokens,
                                        init_dense, layer_params, rms_norm,
                                        swiglu, torch_dtype)
@@ -27,12 +31,10 @@ from repro_torch.models.common import (BLOCKS, apply_rope,
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run."""
     missing = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm"):
         missing.append(f"family {cfg.family!r}")
     if cfg.n_experts > 0:
         missing.append("MoE")
-    if cfg.mrope:
-        missing.append("M-RoPE")
     if cfg.encoder_layers:
         missing.append("cross-attention")
     if cfg.remat != "none":
@@ -40,7 +42,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
-            "runs the dense path)")
+            "runs the dense and vlm paths)")
 
 
 def layer_is_global(cfg: ModelConfig) -> np.ndarray:
@@ -119,9 +121,16 @@ def _project_qkv(cfg, bp, x, positions):
     if cfg.qk_norm:
         q = rms_norm(q, bp["q_norm"], cfg.norm_eps)
         k = rms_norm(k, bp["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    rope = apply_mrope if cfg.mrope else apply_rope
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def _positions(cfg: ModelConfig, B: int, S: int, device, start: int = 0):
+    """Positions start .. start + S - 1 of every row: (B, S), or for
+    M-RoPE (B, S, 3) with equal (t, h, w) ids (text tokens)."""
+    pos = torch.arange(start, start + S, device=device)[None].expand(B, S)
+    return torch.stack([pos] * 3, -1) if cfg.mrope else pos
 
 
 def _block_tail(cfg: ModelConfig, x, bp, out):
@@ -142,13 +151,16 @@ def dense_block(cfg: ModelConfig, x, bp, positions, is_global: bool = True,
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            positions=None) -> torch.Tensor:
-    """tokens: (B, S) -> hidden states (B, S, d)."""
+            positions=None, prefix_embeds=None) -> torch.Tensor:
+    """tokens: (B, S) -> hidden states (B, P + S, d), P the length of the
+    optional prefix_embeds (B, P, d)."""
     check_supported(cfg)
     x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     if positions is None:
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        positions = _positions(cfg, B, S, x.device)
     # unbind once: autograd then stacks each weight's layer grads in one op
     layers = {k[len(BLOCKS):]: v.unbind(0) for k, v in params.items()
               if k.startswith(BLOCKS)}
@@ -159,10 +171,15 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    """batch: {tokens (B,S), labels (B,S), [positions]}."""
-    h = forward(cfg, params, batch["tokens"], batch.get("positions"))
-    return chunked_softmax_xent(h, unembed_matrix(cfg, params),
-                                batch["labels"], chunk=cfg.logits_chunk)
+    """batch: {tokens (B,S), labels (B,S), [positions], [prefix_embeds]}."""
+    prefix = batch.get("prefix_embeds")
+    h = forward(cfg, params, batch["tokens"], batch.get("positions"), prefix)
+    labels = batch["labels"]
+    if prefix is not None:
+        pad = labels.new_full((labels.shape[0], prefix.shape[1]), -100)
+        labels = torch.cat([pad, labels], dim=1)
+    return chunked_softmax_xent(h, unembed_matrix(cfg, params), labels,
+                                chunk=cfg.logits_chunk)
 
 
 # ----------------------------------------------------------------------------
@@ -222,8 +239,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     Returns (logits (B, V) fp32, cache)."""
     check_supported(cfg)
     x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
-    positions = torch.full(tokens.shape, pos, dtype=torch.int64,
-                           device=x.device)
+    positions = _positions(cfg, tokens.shape[0], 1, x.device, pos)
     for layer, (is_global, gidx, lidx) in enumerate(
             zip(*_cache_index_maps(cfg))):
         bp = layer_params(params, layer)
@@ -254,7 +270,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     check_supported(cfg)
     x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    positions = _positions(cfg, B, S, x.device)
     cache = init_cache(cfg, B, S, x.device)
     if "k_loc" in cache:
         w = cfg.local_window

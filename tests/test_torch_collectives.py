@@ -95,6 +95,21 @@ def test_tree_forms_sum_each_leaf():
         optcc_allreduce_tree(iter(members[:3]), 0, tr)
 
 
+@pytest.mark.parametrize("n", [611, 1001, 1889110016 % 10007])
+def test_tree_chunks_are_whole_16_byte_vectors(n):
+    """The tree's buffer is padded to a multiple of 4 (p - 1): every chunk
+    the pair form adds is a whole number of 16-byte fp32 vectors, and the
+    straggler's link carries the padded vector out and back once."""
+    p = 4
+    x = _x(p, n)
+    tr = LocalTransport(p)
+    got = optcc_allreduce_tree(iter([[x[i]] for i in range(p)]), 1, tr)
+    np.testing.assert_allclose(got[0].numpy(), x.sum(0).numpy(), **SUM_TOL)
+    npad = n + (-n) % (4 * (p - 1))
+    assert (npad // (p - 1)) % 4 == 0
+    assert tr.link_load(1) == 2 * npad
+
+
 @pytest.fixture(scope="module")
 def jax_results(tmp_path_factory):
     out = tmp_path_factory.mktemp("jax") / "collectives.npz"

@@ -39,6 +39,16 @@ def jattn():
     (BF, 128, 4096, ALIGNED + [8], "flash_attention"),   # stride of 8 bytes
     (BF, 128, 2, ALIGNED + [24], "flash_attention"),     # ... also for decode
     (BF, 128, 2, [2] + ALIGNED, "flash_attention"),      # unaligned address
+    # hd 12 (the minicpm / qwen2-vl smoke configs): flash_decode and
+    # flash_prefill have no template for it, so every call is general,
+    # even an fp32 decode step whose 48-byte rows are aligned
+    (F32, 12, 1, ALIGNED, "flash_attention"),
+    (F32, 12, 16, ALIGNED, "flash_attention"),
+    (BF, 12, 2, ALIGNED, "flash_attention"),
+    (F32, 12, 24, ALIGNED, "flash_attention"),
+    (BF, 12, 4096, ALIGNED, "flash_attention"),
+    (F32, 12, 1, ALIGNED + [8], "flash_attention"),
+    (BF, 12, 72, [2] + ALIGNED, "flash_attention"),
 ])
 def test_route_rule(dtype, hd, rows, steps, want):
     assert kernel.route(dtype, hd, rows, steps) == want
@@ -61,6 +71,34 @@ def test_model_tensors_take_the_new_routes():
     ks = torch.zeros(2, 12, smoke.n_kv_heads, smoke.hd)
     assert kernel.pick_route(qs, ks, ks) == "flash_attention"
     assert kernel.pick_route(qs[:, :1], ks, ks) == "flash_decode"
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen2-vl-2b",
+                                  "internlm2-1.8b"])
+def test_new_configs_take_their_routes(arch):
+    """The smoke configs' fp32 prompts and decode steps: hd 12 (minicpm,
+    qwen2-vl) always general, internlm2's hd 16 prompt general and its
+    decode step flash_decode; at full width the bf16 prefill on
+    flash_prefill (hd 64 at rep 1, hd 128 at rep 2 and 6) and a decode
+    step on a layer's slice of the 5-D cache on flash_decode."""
+    smoke = get_config(arch, smoke=True)
+    q = torch.zeros(2, 12, smoke.n_heads, smoke.hd)
+    k = torch.zeros(2, 12, smoke.n_kv_heads, smoke.hd)
+    cache = transformer.init_cache(smoke, 2, 20, "cpu")
+    decode = kernel.pick_route(q[:, :1], cache["k_glob"][1],
+                               cache["v_glob"][1])
+    assert kernel.pick_route(q, k, k) == "flash_attention"
+    assert decode == ("flash_attention" if smoke.hd == 12 else
+                      "flash_decode")
+    cfg = get_config(arch)
+    B, S, H, KV, hd = 1, 256, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    assert hd in kernel.PREFILL_HEAD_DIMS
+    q = torch.zeros(B, S, H * hd, dtype=BF).reshape(B, S, H, hd)
+    k = torch.zeros(B, S, KV, hd, dtype=BF)
+    assert kernel.pick_route(q, k, k) == "flash_prefill"
+    cache = transformer.init_cache(cfg.replace(n_layers=2), B, S + 4, "cpu")
+    assert kernel.pick_route(q[:, :1], cache["k_glob"][1],
+                             cache["v_glob"][1]) == "flash_decode"
 
 
 def test_route_misaligned_view():
@@ -203,7 +241,7 @@ def test_cuda_decode_kernel_matches_plain_version():
         def rand(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-        for hd in kernel.HEAD_DIMS:
+        for hd in kernel.DECODE_HEAD_DIMS:
             # one layer of a 5-D cache, read in place
             kc, vc = rand(2, 3, 700, 2, hd)[1], rand(2, 3, 700, 2, hd)[0]
             for rep in (1, 2, 8):

@@ -150,6 +150,11 @@ CASES = [
     (1, 33, 33, 2, 1, 64, {"causal": False}),
     (1, 13, 90, 4, 2, 64, {"q_offset": 70, "kv_len": 83}),
     (1, 9, 70, 2, 2, 128, {"q_offset": 50, "kv_len": 59, "window": 5}),
+    # head dim 12: the MMA width padded to 16 with zero columns (the
+    # emulation's last k-step and dim tile are 4 wide, which is the same)
+    (2, 40, 40, 6, 6, 12, {}),
+    (1, 37, 37, 4, 2, 12, {"window": 8}),
+    (1, 13, 90, 4, 1, 12, {"q_offset": 70, "kv_len": 83}),
 ]
 
 
@@ -258,7 +263,8 @@ def test_plan_mirrors_the_source():
     # q k^T in the MMA accumulator
     assert "acc[d0 + i][e] += f[i][e];" in text
     assert "mma_products<QK, NT>(s, ah, al, bh, bl);" in text
-    assert "HD * static_cast<int>(sizeof(T)) + 16" in text   # row bytes
+    assert "HDP * static_cast<int>(sizeof(T)) + 16" in text  # row bytes
+    assert "constexpr int kHDP = (HD + 7) / 8 * 8;" in text  # MMA width
 
 
 ROWS = [1, 2, 15, 16, 17, 24, 63, 64, 65, 200, 4096]
@@ -286,7 +292,8 @@ def test_general_plan_fits_and_covers_every_slot(hd, itemsize, aligned):
             assert plan["warps"] == 1 and plan["staging"] != "cp.async 16"
         else:
             assert plan["warps"] == kernel.GENERAL_WARPS
-            assert (plan["staging"] == "cp.async 16") == aligned
+            assert (plan["staging"] == "cp.async 16") == (
+                aligned and hd * itemsize % 16 == 0)
         bx, w, r = np.meshgrid(np.arange(plan["grid_x"]),
                                np.arange(plan["warps"]), np.arange(16),
                                indexing="ij")
@@ -371,3 +378,46 @@ def test_cuda_general_kernel_matches_plain_version():
             k, v = rand(2, 100, 2, hd, dtype=BF), rand(2, 100, 2, hd, dtype=BF)
             check(q, k, v)
             check(q, k, v, window=24)
+
+
+@pytest.mark.cuda
+def test_cuda_general_kernel_at_hd12_matches_plain_version():
+    """On the card, head dim 12 (the MMA width padded to 16): fp32 and
+    bf16; prompts of 4 warps and decode steps of one; rep 1 / 2 / 4;
+    causal, non-causal and a window; a chunk after a cached prefix with a
+    ragged Sq; views off 16-byte alignment. Every call takes the general
+    route and is within 2e-5 (1 + |plain|) (plus one bf16 ulp in bf16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel is CUDA C++ for sm_90a")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def check(q, k, v, **kw):
+        assert kernel.pick_route(q, k, v) == "flash_attention"
+        before = kernel.launches["flash_attention"]
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches["flash_attention"] == before + 1, kw
+        err, ok = _within(got, want, ulp=q.dtype == BF)
+        assert ok, (tuple(q.shape), q.dtype, kw, err)
+
+    for dtype in (F32, BF):
+        for rep in (1, 2, 4):
+            q = rand(2, 150, 2 * rep, 12, dtype=dtype)
+            k, v = (rand(2, 150, 2, 12, dtype=dtype) for _ in range(2))
+            for kw in ({}, {"window": 24}, {"causal": False}):
+                check(q, k, v, **kw)
+            kc, vc = (rand(2, 300, 2, 12, dtype=dtype) for _ in range(2))
+            check(q[:, :77], kc, vc, q_offset=200, kv_len=277)
+            check(q[:, :1], kc, vc, q_offset=289, kv_len=290)
+            check(q[:, :16 // rep], kc, vc, q_offset=270,
+                  kv_len=270 + 16 // rep, window=5)
+        store = rand(2 * 300 * 2 * 12 + 3, dtype=dtype)
+        k = store[1:1 + 2 * 300 * 2 * 12].view(2, 300, 2, 12)
+        v = store[3:3 + 2 * 300 * 2 * 12].view(2, 300, 2, 12)
+        check(rand(2, 150, 4, 12, dtype=dtype), k, v)
+        check(rand(2, 1, 4, 12, dtype=dtype), k, v, q_offset=290,
+              kv_len=291)

@@ -29,6 +29,8 @@ assert not bad, bad
 for mod in ("kernels.chunk_reduce.kernel", "kernels.flash_attention.kernel",
             "kernels.wkv.kernel", "models.rwkv6", "train.serve",
             "launch.serve", "configs.rwkv6_7b", "configs.gemma3_27b",
+            "configs.internlm2_1p8b", "configs.minicpm_2b",
+            "configs.qwen2_vl_2b",
             "checkpoint.ckpt",
             "checkpoint._msgpack"):
     assert "repro_torch." + mod in names, mod

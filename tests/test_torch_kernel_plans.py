@@ -5,7 +5,8 @@ shape) and a plain torch emulation of it against `chunk_reduce_pairs_ref_`;
 the wkv launch plan (every (b, h, column, part) once; thread and
 shared-memory limits) and a plain torch emulation of the kernel's
 four-part column split against `wkv_ref` (bit for bit) and the JAX Pallas
-kernel (interpret mode, the JAX wkv tests' 1e-5)."""
+kernel (interpret mode, the JAX wkv tests' 1e-5); the general flash route's
+plan at head dim 12 (its MMA width padded to 16)."""
 import numpy as np
 import pytest
 
@@ -13,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.chunk_reduce import kernel as ck  # noqa: E402
 from repro_torch.kernels.chunk_reduce import ref as cref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
 from repro_torch.kernels.wkv import kernel as wk  # noqa: E402
 from repro_torch.kernels.wkv import ref as wref  # noqa: E402
 
@@ -232,3 +234,48 @@ def test_wkv_part_emulation_matches_jax_kernel(jx, hd, with_state):
     for got, want in ((out, want_out), (state, want_state)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned",
+                                                        "unaligned"])
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [1, 6, 16, 17, 24, 4096],
+                         ids=lambda r: f"rows{r}")
+def test_general_plan_at_hd12(rows, itemsize, aligned):
+    """Head dim 12: rows of the MMA's 16 columns (4 of them zeros) plus 16
+    bytes of padding; a decode step (<= 16 rows) one warp with 4-byte or
+    plain staging; a prompt 4 warps, staged by 16-byte cp.async only for
+    aligned fp32 (a 48-byte row is 3 copies; a 24-byte bf16 row is not a
+    whole number of them)."""
+    plan = fk.general_plan(12, itemsize, rows, aligned)
+    assert plan["mma_hd"] == 16
+    assert plan["row_bytes"] == 16 * itemsize + 16
+    assert plan["smem"] == 3 * 2 * 32 * plan["row_bytes"]
+    assert plan["grid_x"] == -(-rows // plan["rows"])
+    if rows <= fk.DECODE_MAX_ROWS:
+        assert plan["warps"] == 1 and plan["rows"] == 16
+        assert plan["staging"] == ("cp.async 4" if itemsize == 4
+                                   else "load")
+        return
+    assert plan["warps"] == fk.GENERAL_WARPS
+    want = ("cp.async 16" if aligned and itemsize == 4 else
+            "cp.async 4" if itemsize == 4 else "load")
+    assert plan["staging"] == want
+    if want == "cp.async 16":
+        # 3 copies a row, every destination on a 16-byte boundary of the
+        # ring, none reaching the zero columns 12-15
+        starts = [(r * plan["row_bytes"] + 16 * c) for r in range(64)
+                  for c in range(3)]
+        assert all(b % 16 == 0 for b in starts)
+        assert 3 * 16 == 12 * itemsize
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [1, 6, 16, 24, 4096],
+                         ids=lambda r: f"rows{r}")
+def test_route_at_hd12_is_general(rows, dtype):
+    """Every hd-12 call, aligned or not, prompt or decode step, takes the
+    general route: flash_decode and flash_prefill have no hd-12 template."""
+    dt = getattr(torch, dtype)
+    for steps in ([0, 4096, 256, 2048, 128], [4, 4096, 256, 2048, 128]):
+        assert fk.route(dt, 12, rows, steps) == "flash_attention"

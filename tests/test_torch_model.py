@@ -113,11 +113,16 @@ def test_convert_round_trip_is_bit_exact_bf16_included():
     assert state["count"].dtype == torch.int32 and int(state["count"]) == 1
 
 
+PORTED = ["qwen3-1.7b", "gemma3-27b", "rwkv6-7b", "internlm2-1.8b",
+          "minicpm-2b", "qwen2-vl-2b"]
+
+
 def test_configs_of_later_slices_raise():
-    ported = ("qwen3-1.7b", "gemma3-27b", "rwkv6-7b")
-    assert set(ported) <= set(ARCH_IDS) and len(ARCH_IDS) == 10
+    later = {"arctic-480b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b",
+             "whisper-base"}
+    assert set(PORTED) | later == set(ARCH_IDS) and len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
-        if arch not in ported:
+        if arch not in PORTED:
             with pytest.raises(NotImplementedError, match="later|slice"):
                 get_config(arch)
     with pytest.raises(KeyError):
@@ -126,7 +131,7 @@ def test_configs_of_later_slices_raise():
         build_model(get_config("qwen3-1.7b").replace(n_experts=4))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-27b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
 def test_ported_configs_equal_jax_field_by_field(arch, smoke):
     ours = dataclasses.asdict(get_config(arch, smoke=smoke))

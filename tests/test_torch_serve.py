@@ -31,8 +31,10 @@ CASES = [("qwen3-1.7b", False), ("gemma3-27b", False), ("rwkv6-7b", False),
          ("rwkv6-7b", True)]
 IDS = ["qwen3", "gemma3", "rwkv6-scan", "rwkv6-wkv-kernel"]
 # the smoke configs of the served archs (gemma3's window of 16 wraps its
-# rings before TOTAL)
-ARCHS = ["qwen3-1.7b", "gemma3-27b", "rwkv6-7b"]
+# rings before TOTAL; minicpm and qwen2-vl have head dim 12); the JAX
+# parity of the last three is tests/test_torch_dense_configs.py
+ARCHS = ["qwen3-1.7b", "gemma3-27b", "rwkv6-7b", "internlm2-1.8b",
+         "minicpm-2b", "qwen2-vl-2b"]
 
 
 @pytest.fixture(scope="module")

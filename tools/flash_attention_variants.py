@@ -61,16 +61,18 @@ Q_REGS = """  float qf[KD][4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int h2 = e & 1;
-      qf[ks][e] = row_ok[h2] ? to_f32(qrow[h2][ks * 8 + tq + 4 * (e >> 1)]) : 0.0f;
+      const int col = ks * 8 + tq + 4 * (e >> 1);
+      qf[ks][e] = row_ok[h2] && col < HD ? to_f32(qrow[h2][col]) : 0.0f;
     }
 """
 Q_SMEM = """  T* Qs = reinterpret_cast<T*>(smem + kStages * P::stage);
-  for (int idx = tid; idx < BQ * HD; idx += WARPS * 32) {
-    const int rl = idx / HD;
-    const int d = idx % HD;
+  for (int idx = tid; idx < BQ * HDP; idx += WARPS * 32) {
+    const int rl = idx / HDP;
+    const int d = idx % HDP;
     const int64_t r = r0 + rl;
     T x = from_f32<T>(0.0f);
-    if (r < n_rows) x = q[(r / a.rep) * a.q_ss + (g * a.rep + r % a.rep) * a.q_sh + d];
+    if (r < n_rows && d < HD)
+      x = q[(r / a.rep) * a.q_ss + (g * a.rep + r % a.rep) * a.q_sh + d];
     Qs[rl * RS + d] = x;
   }
 """

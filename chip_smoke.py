@@ -31,7 +31,14 @@ phases, each printing one JSON line:
                  non-causal, a window, q_offset with a ragged Sq, views off
                  16-byte alignment); the full-width prefill and decode of
                  minicpm-2b (rep 1, hd 64) and qwen2-vl-2b (rep 6, hd 128)
-                 on flash_prefill and flash_decode;
+                 on flash_prefill and flash_decode; hymba-1.5b's windowed
+                 prefill (window 1024) and its ring decode of 5 rows a kv
+                 head, whisper-base's non-causal encoder over 1500 frames
+                 (a ragged last query tile) and its cross-attention (4
+                 prompt rows and decode rows over the frames) and
+                 self-attention decode steps; hymba-smoke's hd-12 window
+                 and whisper-smoke's hd-16 non-causal calls (Sq != Skv) on
+                 the general route;
   wkv_kernel   - wkv against its plain version: every head dim at S 1, 15,
                  16, 17, 33 and 1024 with and without an initial state, the JAX
                  sweep, state chaining over two calls, the rwkv6-7b prefill
@@ -54,9 +61,11 @@ phases, each printing one JSON line:
   serve_qwen3  - `repro_torch.launch.serve.main` on qwen3-1.7b at full width
                  and depth (batch 8, prompt 2048, 64 new tokens);
   serve_rwkv6  - the same on rwkv6-7b (batch 4, prompt 1024, 32 new tokens);
-  main_path_internlm2 - the training launcher on internlm2-1.8b at full
-                 width (untied lm_head) through healthy -> degraded ->
-                 repaired steps, no checkpoint;
+  main_path_internlm2, main_path_hymba - the training launcher on
+                 internlm2-1.8b (untied lm_head) and hymba-1.5b (bf16
+                 leaves beside fp32 ones: the healthy sync launches the
+                 W-way form once per dtype) at full width through healthy
+                 -> degraded -> repaired steps, no checkpoint;
   serve_gemma3 - the same on gemma3-27b (62 layers, 52 local with a window
                  of 1024 and a rolling cache, 10 global; batch 4, prompt
                  2048, 32 new tokens): each layer kind's attention calls
@@ -64,15 +73,22 @@ phases, each printing one JSON line:
   serve_internlm2, serve_minicpm, serve_qwen2vl - the same on
                  internlm2-1.8b, minicpm-2b and qwen2-vl-2b at full width
                  and depth (batch 8, prompt 2048, 64 new tokens);
-  reference    - the DP step on the qwen3, gemma3, internlm2, minicpm and
-                 qwen2-vl smoke configs, card against CPU, and qwen2-vl's
-                 loss and gradients with a patch-embedding prefix;
-  serve_reference - the six smoke configs: the card's greedy tokens equal
-                 the CPU's (the fp32 smoke prefills are the general
-                 flash_attention route's path, and at head dim 12, minicpm
-                 and qwen2-vl, so are their decode steps; each hd-12 call
-                 is held to the plain version), and prefill/decode logits
-                 equal `forward`'s (gemma3's decode past its rings' wrap);
+  serve_hymba  - the same on hymba-1.5b (32 layers; batch 8, prompt 2048,
+                 past its window of 1024, 64 new tokens), with the Mamba
+                 branch's share of the prefill and the decode timed;
+  serve_whisper - the same on whisper-base (6 + 6 layers; batch 16, 1500
+                 frames, a 4-token prompt, 224 new tokens);
+  reference    - the DP step on the qwen3, gemma3, internlm2, minicpm,
+                 qwen2-vl and hymba smoke configs, card against CPU, and
+                 the loss and gradients of qwen2-vl with a patch-embedding
+                 prefix and of whisper with its frames;
+  serve_reference - the eight smoke configs: the card's greedy tokens
+                 equal the CPU's (the fp32 smoke prefills are the general
+                 flash_attention route's path, and at head dim 12,
+                 minicpm, qwen2-vl and hymba, so are their decode steps;
+                 each hd-12 call is held to the plain version), and
+                 prefill/decode logits equal `forward`'s (gemma3's and
+                 hymba's decode past their rings' wrap);
   timing       - each kernel at its path's shapes (CUDA events, host
                  included, and `device_ms`: the kernels' own time from
                  torch.profiler) beside its bound, its plain version and one
@@ -82,15 +98,18 @@ phases, each printing one JSON line:
                  gradient length; flash_prefill also at gemma3-27b's local
                  prefill and at minicpm-2b's and qwen2-vl-2b's prefills,
                  flash_decode at gemma3-27b's ring decode and those two
-                 models' decode steps, the general route at head dim 12);
+                 models' decode steps, the general route at head dim 12,
+                 and the new shapes of hymba-1.5b and whisper-base; the
+                 W-way form at hymba's two gradient buffers and the pair
+                 form at its length);
                  wkv's decode step also with its inputs cold in L2,
                  rotating over 16 sets of inputs and states.
 
-Each path (training, its resumed and rescaled runs, internlm2's training,
-the six serve runs, the smoke configs' card run) is driven with the
-kernels' launch counts set to 0 just before it and read just after. Then
-it prints the whole run's seconds, the card's name and power limit
-(nvidia-smi), a `kernels` JSON line, and, as the last line,
+Each path (training, its resumed and rescaled runs, internlm2's and
+hymba's training, the eight serve runs, the smoke configs' card run) is
+driven with the kernels' launch counts set to 0 just before it and read
+just after. Then it prints the whole run's seconds, the card's name and
+power limit (nvidia-smi), a `kernels` JSON line, and, as the last line,
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 nonzero and prints no result. It needs a CUDA card and the rest of the
 repository; it imports nothing of JAX.
@@ -166,11 +185,22 @@ SERVE_MINICPM = {"arch": "minicpm-2b", "batch": 8, "prompt_len": 2048,
                  "new_tokens": 64}
 SERVE_QWEN2VL = {"arch": "qwen2-vl-2b", "batch": 8, "prompt_len": 2048,
                  "new_tokens": 64}
+# hymba-1.5b: the prompt is longer than its window of 1024, so the rings
+# wrap in prefill; whisper-base: 30 s of audio (1500 frames), a 4-token
+# start prompt and whisper's default sample_len of n_text_ctx // 2 = 224
+SERVE_HYMBA = {"arch": "hymba-1.5b", "batch": 8, "prompt_len": 2048,
+               "new_tokens": 64}
+SERVE_WHISPER = {"arch": "whisper-base", "batch": 16, "prompt_len": 4,
+                 "new_tokens": 224}
 SERVE_SPECS = (SERVE_QWEN3, SERVE_RWKV6, SERVE_GEMMA3, SERVE_INTERNLM2,
-               SERVE_MINICPM, SERVE_QWEN2VL)
-# the smoke configs of the dense and vlm decoders (phase_reference)
+               SERVE_MINICPM, SERVE_QWEN2VL, SERVE_HYMBA, SERVE_WHISPER)
+# the smoke configs whose DP step phase_reference runs card against CPU
 DENSE_ARCHS = ("qwen3-1.7b", "gemma3-27b", "internlm2-1.8b", "minicpm-2b",
                "qwen2-vl-2b")
+REFERENCE_ARCHS = DENSE_ARCHS + ("hymba-1.5b",)
+# the smoke configs whose serving phase_serve_reference runs card and CPU
+SERVE_REFERENCE_ARCHS = DENSE_ARCHS + ("rwkv6-7b", "hymba-1.5b",
+                                       "whisper-base")
 FLASH_ROUTES = ("flash_attention", "flash_prefill", "flash_decode")
 # the timing fields of each kernel in the `kernels` line
 LINE_FIELDS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -179,11 +209,13 @@ MAIN_ARGV = ["--arch", "qwen3-1.7b", "--dp", "4", "--seq-len", "128",
              "--global-batch", "8", "--steps", "6", "--fail-at", "2",
              "--repair-at", "4", "--straggler", "1", "--log-every", "1"]
 CKPT_STEP = 4              # the main path saves once, after step 3
-# internlm2-1.8b's training: healthy step 0, degraded 1-2, repaired 3
+# internlm2-1.8b's and hymba-1.5b's training: healthy step 0, degraded
+# 1-2, repaired 3
 INTERNLM2_ARGV = ["--arch", "internlm2-1.8b", "--dp", "4", "--seq-len",
                   "128", "--global-batch", "8", "--steps", "4", "--fail-at",
                   "1", "--repair-at", "3", "--straggler", "1",
                   "--log-every", "1"]
+HYMBA_ARGV = ["--arch", "hymba-1.5b"] + INTERNLM2_ARGV[2:]
 # the DP step's card-vs-CPU limits (phase_reference): loss rel, params abs.
 # AdamW divides by sqrt(nu) per element, so a float-order difference in a
 # near-zero gradient grows into an update difference of up to lr.
@@ -248,13 +280,16 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     del main_run
-    n_internlm2, internlm2_launches = phase_main_path_internlm2(torch, dev)
+    n_internlm2, internlm2_launches = phase_main_path_arch(
+        torch, dev, INTERNLM2_ARGV)
     _add(launches, internlm2_launches)
+    n_hymba, hymba_launches = phase_main_path_arch(torch, dev, HYMBA_ARGV)
+    _add(launches, hymba_launches)
     for spec in SERVE_SPECS:
         _add(launches, phase_serve(torch, dev, spec))
     phase_reference(torch, dev)
     _add(launches, phase_serve_reference(torch, dev))
-    timings = phase_timing(torch, dev, n_grad, n_internlm2, errs)
+    timings = phase_timing(torch, dev, n_grad, n_internlm2, n_hymba, errs)
     timings.update(phase_serve_timing(torch, dev, errs))
     emit({"phase": "total", "seconds": time.perf_counter() - t_script})
 
@@ -413,6 +448,11 @@ def _attn_shape(spec: dict):
     cfg = get_config(spec["arch"])
     return (spec["batch"], spec["prompt_len"], cfg.n_heads, cfg.n_kv_heads,
             cfg.hd)
+
+
+def _serve_cfg(spec: dict):
+    from repro_torch.configs import get_config
+    return get_config(spec["arch"])
 
 
 def _gemma3_attn_shape():
@@ -667,6 +707,69 @@ def phase_flash_kernel(torch, dev, errs) -> None:
         cases += 6
         del kc, vc, q
         torch.cuda.empty_cache()
+    # hymba-1.5b (25/5 heads, hd 64, window 1024): one batch row of the
+    # serve run's windowed prefill; decode rows of 5 queries a kv head over
+    # a full ring and a part-filled one, non-causal over the filled slots
+    cfg = _serve_cfg(SERVE_HYMBA)
+    Bh, S, w = SERVE_HYMBA["batch"], SERVE_HYMBA["prompt_len"], \
+        cfg.hymba_window
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = rand((1, S, H, hd), bf)
+    k, v = rand((1, S, KV, hd), bf), rand((1, S, KV, hd), bf)
+    check(q, k, v, f"hymba prefill window {w}", "flash_prefill", tight=True,
+          window=w)
+    del q, k, v
+    ring_k, ring_v = (rand((Bh, w, KV, hd), bf) for _ in range(2))
+    q = rand((Bh, 1, H, hd), bf)
+    for kv_len in (w, 1, 300):
+        check(q, ring_k, ring_v, f"hymba ring decode kv_len {kv_len}",
+              "flash_decode", tight=True, causal=False, kv_len=kv_len)
+    cases += 4
+    del q, ring_k, ring_v
+    # whisper-base (8/8 heads, hd 64, 1500 frames): the encoder's
+    # non-causal prefill over the frames (1500 is no multiple of the
+    # 64-query tile) for two rows of the serve batch; the cross-attention of
+    # the 4-token prompt (4 rows a kv head) and of a decode step over all
+    # the frames; the decoder's self-attention at its first and last decode
+    # steps
+    cfg = _serve_cfg(SERVE_WHISPER)
+    Bw, F = SERVE_WHISPER["batch"], cfg.n_audio_frames
+    P, n_new = SERVE_WHISPER["prompt_len"], SERVE_WHISPER["new_tokens"]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = rand((2, F, H, hd), bf)
+    k, v = rand((2, F, KV, hd), bf), rand((2, F, KV, hd), bf)
+    check(q, k, v, "whisper encoder", "flash_prefill", tight=True,
+          causal=False)
+    del q, k, v
+    xk, xv = (rand((Bw, F, KV, hd), bf) for _ in range(2))
+    for Sq in (P, 1):
+        check(rand((Bw, Sq, H, hd), bf), xk, xv,
+              f"whisper cross-attention Sq {Sq}", "flash_decode",
+              tight=True, causal=False)
+    kc, vc = (rand((Bw, P + n_new, KV, hd), bf) for _ in range(2))
+    q = rand((Bw, 1, H, hd), bf)
+    for pos in (P, P + n_new - 2):
+        check(q, kc, vc, f"whisper self decode pos={pos}", "flash_decode",
+              tight=True, q_offset=pos, kv_len=pos + 1)
+    cases += 5
+    del q, xk, xv, kc, vc
+    torch.cuda.empty_cache()
+    # the smoke configs' shapes on the general route: hymba-smoke's hd 12
+    # within its window of 16 (a prompt that wraps it) and whisper-smoke's
+    # hd 16 encoder and a non-causal prompt of 40 queries over 24 frames
+    # (Sq != Skv), in fp32
+    f32 = torch.float32
+    q = rand((2, 40, 5, 12), f32)
+    k, v = rand((2, 40, 5, 12), f32), rand((2, 40, 5, 12), f32)
+    check(q, k, v, "hymba-smoke prompt window 16", "flash_attention",
+          tight=True, window=16)
+    k, v = rand((2, 24, 4, 16), f32), rand((2, 24, 4, 16), f32)
+    check(rand((2, 24, 4, 16), f32), k, v, "whisper-smoke encoder",
+          "flash_attention", tight=True, causal=False)
+    check(rand((2, 40, 4, 16), f32), k, v, "whisper-smoke Sq 40 over 24",
+          "flash_attention", tight=True, causal=False)
+    cases += 3
+    del q, k, v
     emit({"phase": "flash_kernel", "cases": cases,
           "max_abs_err": {r: errs[r] for r in FLASH_ROUTES},
           "by_group": by_group, "decode_splits": sorted(splits),
@@ -1054,59 +1157,88 @@ def phase_elastic(torch, dev, ckpt_dir: str, main_run: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_main_path_internlm2(torch, dev) -> tuple:
-    """The training launcher on internlm2-1.8b at full width (24 layers,
-    an untied 2048 x 92544 lm_head synced with the rest), 4 members,
+def phase_main_path_arch(torch, dev, argv) -> tuple:
+    """The training launcher on `argv`'s arch at full width, 4 members,
     healthy step 0, degraded steps 1-2 (OptCC around straggler 1),
-    repaired step 3; no checkpoint. Returns the param count and the
-    chunk_reduce launches."""
-    state, log, launches, seconds = _run_train(torch, INTERNLM2_ARGV, [])
+    repaired step 3; no checkpoint: internlm2-1.8b (24 layers, an untied
+    2048 x 92544 lm_head synced with the rest) and hymba-1.5b (32 layers
+    of attention and Mamba heads; bf16 leaves beside its fp32 m_dt_bias,
+    m_alog and m_d, so the healthy sync packs one buffer per dtype, two
+    W-way launches a step besides the loss's, and the degraded one a
+    single fp32 buffer).
+    Returns the gradient element count of each dtype and the chunk_reduce
+    launches."""
+    state, log, launches, seconds = _run_train(torch, argv, [])
+    arch = argv[argv.index("--arch") + 1]
     require([r["sync"] for r in log] == ["psum", "optcc", "optcc", "psum"],
-            f"internlm2 syncs {[r['sync'] for r in log]}")
-    require(all(r["launches"]["chunk_reduce"] > 0 for r in log
-                if r["sync"] == "psum"),
-            "a healthy internlm2 step did not launch chunk_reduce")
-    require(all(r["launches"]["chunk_reduce_pairs"] > 0 for r in log
-                if r["sync"] == "optcc"),
-            "a degraded internlm2 step did not launch chunk_reduce_pairs")
-    require("lm_head" in state.params, "internlm2 has no untied lm_head")
-    n_grad = sum(v.numel() for v in state.params.values())
-    emit({"phase": "main_path_internlm2", "argv": INTERNLM2_ARGV,
-          "n_layers": state.params["blocks/wq"].shape[0], "params": n_grad,
+            f"{arch} syncs {[r['sync'] for r in log]}")
+    groups = {}
+    for v in state.params.values():
+        key = str(v.dtype).removeprefix("torch.")
+        groups[key] = groups.get(key, 0) + v.numel()
+    for r in log:
+        # a healthy step: one launch per gradient dtype, one for the loss
+        if r["sync"] == "psum":
+            require(r["launches"]["chunk_reduce"] == len(groups) + 1,
+                    f"a healthy {arch} step launched chunk_reduce "
+                    f"{r['launches']['chunk_reduce']} times, not once per "
+                    f"dtype of {sorted(groups)} and once for the loss")
+        else:
+            require(r["launches"]["chunk_reduce_pairs"] > 0,
+                    f"a degraded {arch} step did not launch "
+                    "chunk_reduce_pairs")
+    require("lm_head" in state.params, f"{arch} has no untied lm_head")
+    emit({"phase": "main_path_" + arch.split("-")[0], "argv": argv,
+          "n_layers": state.params["blocks/wq"].shape[0],
+          "params": sum(groups.values()), "params_by_dtype": groups,
           "seconds": seconds, "launches": launches,
           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
           "steps": [{k: r[k] for k in ("step", "loss", "grad_norm", "sync",
                                        "algo", "step_seconds",
                                        "grad_seconds", "sync_seconds",
-                                       "update_seconds")} for r in log],
+                                       "update_seconds", "launches")}
+                    for r in log],
           "host": _host_memory()})
     del state
     torch.cuda.empty_cache()
-    return n_grad, launches
+    return groups, launches
 
 
 def _serve_kernels(cfg, n_new: int) -> dict:
     """The launches a generate run of n_new tokens must make: one per layer
     in the prefill and in each of the n_new - 1 decode steps; for the dense
-    and vlm decoders in bf16 at hd 64 or 128, the prefill on flash_prefill,
-    the decode steps on flash_decode and none on the general
-    flash_attention route."""
+    and vlm decoders and hymba in bf16 at hd 64 or 128, the prefill on
+    flash_prefill, the decode steps on flash_decode and none on the
+    general flash_attention route. whisper's encoder layers each take one
+    flash_prefill over the frames; its decoder's layers two calls a token,
+    self- and cross-attention, all on flash_decode (a 4-token prompt is
+    4 rows a kv head)."""
     if cfg.family == "rwkv6":
         return {"wkv": cfg.n_layers * n_new}
+    if cfg.family == "whisper":
+        return {"flash_attention": 0, "flash_prefill": cfg.encoder_layers,
+                "flash_decode": 2 * cfg.n_layers * n_new}
     return {"flash_attention": 0, "flash_prefill": cfg.n_layers,
             "flash_decode": cfg.n_layers * (n_new - 1)}
 
 
 def _serve_calls(cfg, n_new: int) -> dict:
-    """The serving attention calls of a dense model's generate run, by
-    layer kind: each local layer's prefill within its window and its decode
-    steps over its ring, each global layer's over the whole sequence."""
+    """The serving attention calls of a generate run, by kind: each local
+    layer's prefill within its window and its decode steps over its ring
+    (gemma3's local layers, every hymba layer), each global layer's over
+    the whole sequence; whisper's unmasked calls (`full`: its encoder and
+    every cross-attention) beside its decoder's causal ones."""
     from repro_torch.models.transformer import layer_is_global
-    n_glob = int(layer_is_global(cfg).sum())
+    if cfg.family == "hymba":
+        n_glob = 0
+    else:
+        n_glob = int(layer_is_global(cfg).sum())
     n_loc = cfg.n_layers - n_glob
     return {"prefill_windowed": n_loc, "prefill_global": n_glob,
             "decode_ring": n_loc * (n_new - 1),
-            "decode_global": n_glob * (n_new - 1)}
+            "decode_global": n_glob * (n_new - 1),
+            "full": (cfg.encoder_layers + cfg.n_layers * n_new
+                     if cfg.family == "whisper" else 0)}
 
 
 @contextlib.contextmanager
@@ -1116,10 +1248,10 @@ def _attention_calls(calls: dict):
     kinds."""
     from repro_torch.models import attention as attn
     names = ("prefill_attention", "decode_attention",
-             "ring_decode_attention")
+             "ring_decode_attention", "full_attention")
     orig = {n: getattr(attn, n) for n in names}
     for kind in ("prefill_windowed", "prefill_global", "decode_ring",
-                 "decode_global"):
+                 "decode_global", "full"):
         calls[kind] = 0
 
     def prefill(q, k, v, window=0):
@@ -1134,7 +1266,11 @@ def _attention_calls(calls: dict):
         calls["decode_ring"] += 1
         return orig["ring_decode_attention"](*args, **kw)
 
-    for name, fn in zip(names, (prefill, decode, ring)):
+    def full(*args, **kw):
+        calls["full"] += 1
+        return orig["full_attention"](*args, **kw)
+
+    for name, fn in zip(names, (prefill, decode, ring, full)):
         setattr(attn, name, fn)
     try:
         yield
@@ -1143,11 +1279,42 @@ def _attention_calls(calls: dict):
             setattr(attn, name, fn)
 
 
+@contextlib.contextmanager
+def _scan_seconds(torch, seen: dict):
+    """While it is open, each call of hymba's Mamba branch
+    (`models.hymba._mamba_scan`) is timed between two device syncs, and
+    `seen` sums the seconds of the prefill's calls (S > 1) and of the
+    decode steps'. The syncs stop the host from running ahead of the
+    device across the branch, so the run is a little slower than without
+    them; the split is what it is for."""
+    from repro_torch.models import hymba
+    orig = hymba._mamba_scan
+    seen.update(prefill=0.0, decode=0.0, calls=0)
+
+    def timed(cfg, bp, h, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(cfg, bp, h, *args)
+        torch.cuda.synchronize()
+        seen["prefill" if h.shape[1] > 1 else "decode"] += \
+            time.perf_counter() - t
+        seen["calls"] += 1
+        return out
+
+    hymba._mamba_scan = timed
+    try:
+        yield
+    finally:
+        hymba._mamba_scan = orig
+
+
 def phase_serve(torch, dev, spec: dict) -> dict:
     """`launch.serve.main` at full width and depth; returns the launches
-    of the path's kernels in that run. For a dense model each launch is
-    also matched to its layer kind (local within its window and over its
-    ring, or global)."""
+    of the path's kernels in that run. Each launch is also matched to its
+    kind of call (a local layer's within its window and over its ring, a
+    global one's, or whisper's unmasked encoder and cross-attention); for
+    hymba the Mamba branch's share of the prefill and of the decode steps
+    is timed (`_scan_seconds`)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import main as serve_main
@@ -1155,11 +1322,23 @@ def phase_serve(torch, dev, spec: dict) -> dict:
     argv = ["--arch", spec["arch"], "--batch", str(spec["batch"]),
             "--prompt-len", str(spec["prompt_len"]),
             "--new-tokens", str(spec["new_tokens"]), "--seed", "0"]
-    calls = {}
+    calls, scan = {}, {}
     reset_launch_counts()
-    with _attention_calls(calls):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_attention_calls(calls))
+        if cfg.family == "hymba":
+            stack.enter_context(_scan_seconds(torch, scan))
         tokens, log = serve_main(argv)
     torch.cuda.synchronize()
+    if scan:
+        require(scan["calls"] == cfg.n_layers * spec["new_tokens"],
+                f"{cfg.name}: {scan['calls']} Mamba scans")
+        log["mamba_scan"] = {
+            "prefill_seconds": scan["prefill"],
+            "prefill_share": scan["prefill"] / log["prefill_seconds"],
+            "decode_seconds": scan["decode"],
+            "decode_share": scan["decode"] / log["decode_seconds"],
+            "timed_between_syncs": True}
     counts = launch_counts()
     want = _serve_kernels(cfg, spec["new_tokens"])
     launches = {k: counts[k] for k in want}
@@ -1175,6 +1354,10 @@ def phase_serve(torch, dev, spec: dict) -> dict:
     require(log["logits_finite"], f"{cfg.name}: non-finite logits")
     require(launches == want, f"{cfg.name}: launches {launches}, not "
             f"{want} (one per layer per prefill and decode step)")
+    if cfg.family == "hymba":
+        # the rings wrap in the prefill: the prompt is longer than them
+        require(spec["prompt_len"] > cfg.hymba_window,
+                f"{cfg.name}: the prompt does not wrap the rings")
     name = spec["arch"].split("-")[0] + ("vl" if cfg.family == "vlm" else "")
     emit({"phase": "serve_" + name, "argv": argv,
           **log, "kernel_launches": launches})
@@ -1184,37 +1367,56 @@ def phase_serve(torch, dev, spec: dict) -> dict:
 
 
 def phase_reference(torch, dev) -> None:
-    """The smoke configs of the dense and vlm decoders, the same parameters
-    on the card and on the CPU: the card's degraded (OptCC) run equals its
-    healthy (psum) run, as on 8 JAX devices in tests/multidev_driver.py,
-    and the CPU's plain-PyTorch run. One line per config; then qwen2-vl's
-    loss and gradients with a patch prefix."""
-    for arch in DENSE_ARCHS:
+    """The smoke configs of the dense and vlm decoders and hymba, the same
+    parameters on the card and on the CPU: the card's degraded (OptCC) run
+    equals its healthy (psum) run, as on 8 JAX devices in
+    tests/multidev_driver.py, and the CPU's plain-PyTorch run. One line per
+    config; then the loss and gradients of qwen2-vl with a patch prefix
+    and of whisper with its frames."""
+    for arch in REFERENCE_ARCHS:
         _reference_run(torch, dev, arch)
-    _prefix_loss_run(torch, dev)
+    _loss_run(torch, dev, "qwen2-vl-2b")
+    _loss_run(torch, dev, "whisper-base")
 
 
-def _prefix_loss_run(torch, dev) -> None:
-    """qwen2-vl-smoke's loss and gradients on a batch with a patch prefix
-    (8 standard-normal embeddings before 24 tokens, their labels masked)
-    and unequal (t, h, w) ids, card against CPU: loss rel within
-    STEP_TOL, each gradient leaf within 2e-4 of its norm (the sum of two
-    fp32 errors of up to 1e-4 of a leaf's norm on these poorly conditioned
-    gradients, tests/test_torch_dense_configs.py)."""
+# the card-vs-CPU limit on each gradient leaf, norm-wise: the sum of two
+# fp32 runs' errors, up to 1e-4 of a leaf's norm for qwen2-vl-smoke
+# (tests/test_torch_dense_configs.py) and, on this run's batch (labels
+# equal to the tokens), up to 1.8e-3 for whisper-smoke: the CPU's own fp32
+# gradients against a float64 run (tools/fp32_conditioning.py
+# --chip-batch)
+LOSS_RUN_GRAD_TOL = {"qwen2-vl-2b": 2e-4, "whisper-base": 4e-3}
+
+
+def _loss_run(torch, dev, arch: str) -> None:
+    """A smoke config's loss and gradients, card against CPU, on a batch
+    with its extras: qwen2-vl's patch prefix (8 standard-normal
+    embeddings before 24 tokens, their labels masked) and unequal (t, h,
+    w) ids; whisper's 24 standard-normal frames. Loss rel within STEP_TOL,
+    each gradient leaf within LOSS_RUN_GRAD_TOL of its norm."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    cfg = get_config("qwen2-vl-2b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     model = build_model(cfg)
     init = model.init(8, "cpu")
     rng = np.random.default_rng(8)
-    B, S, P = 2, 24, cfg.n_patch_tokens
+    B, S = 2, 24
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).long()
-    batch = {"tokens": toks, "labels": toks.clone(),
-             "prefix_embeds": torch.from_numpy(rng.standard_normal(
-                 (B, P, cfg.d_model)).astype(np.float32)),
-             "positions": torch.from_numpy(rng.integers(
-                 0, 64, (B, P + S, 3))).long()}
+    batch = {"tokens": toks, "labels": toks.clone()}
+    if cfg.family == "vlm":
+        P = cfg.n_patch_tokens
+        batch["prefix_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, P, cfg.d_model)).astype(np.float32))
+        batch["positions"] = torch.from_numpy(rng.integers(
+            0, 64, (B, P + S, 3))).long()
+        shapes = {"tokens": [B, S], "prefix_embeds": [B, P, cfg.d_model],
+                  "positions": "random (t, h, w) ids"}
+    else:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+        shapes = {"tokens": [B, S],
+                  "frames": [B, cfg.n_audio_frames, cfg.d_model]}
     runs = []                  # the card's, then the CPU's
     for device in (dev, torch.device("cpu")):
         params = {k: v.detach().clone().to(device).requires_grad_(True)
@@ -1229,15 +1431,16 @@ def _prefix_loss_run(torch, dev) -> None:
                     for a, b in zip(card_grads, cpu_grads))
     grads_rel = max(float((a - b).norm() / b.norm())
                     for a, b in zip(card_grads, cpu_grads))
-    require(loss_rel < STEP_TOL[0] and grads_rel <= 2e-4,
-            f"qwen2-vl prefix loss card vs CPU: {loss_rel}, {grads_rel}")
-    emit({"phase": "reference_prefix", "config": cfg.name,
-          "batch": {"tokens": [B, S], "prefix_embeds": [B, P, cfg.d_model],
-                    "positions": "random (t, h, w) ids"},
+    tol = LOSS_RUN_GRAD_TOL[arch]
+    require(loss_rel < STEP_TOL[0] and grads_rel <= tol,
+            f"{cfg.name} loss card vs CPU: {loss_rel}, {grads_rel}")
+    emit({"phase": "reference_" + ("prefix" if cfg.family == "vlm"
+                                   else "frames"),
+          "config": cfg.name, "batch": shapes,
           "loss": card_loss, "card_vs_cpu": {
               "loss_rel": loss_rel, "grads_norm_rel": grads_rel,
               "grads_abs": grads_abs},
-          "limits": {"loss_rel": STEP_TOL[0], "grads_norm_rel": 2e-4}})
+          "limits": {"loss_rel": STEP_TOL[0], "grads_norm_rel": tol}})
 
 
 def _reference_run(torch, dev, arch: str) -> None:
@@ -1293,12 +1496,13 @@ def _reference_run(torch, dev, arch: str) -> None:
                 f"card vs CPU: {cd}")
         limits = {"healthy_vs_degraded": (1e-5, 1e-5), "card_vs_cpu": STEP_TOL}
     else:
-        # internlm2, minicpm and qwen2-vl: their smoke gradients are poorly
-        # conditioned (fp32 errors up to 1e-4 of a leaf's norm,
-        # tests/test_torch_dense_configs.py), and AdamW's per-element
-        # normalisation turns an error in a gradient element near 0 into an
-        # update of the other sign: such a parameter parts by at most 2 lr a
-        # step. On the CPU, this run in fp32 leaves 0.20 % of minicpm-smoke's
+        # internlm2, minicpm, qwen2-vl and hymba: their smoke gradients are
+        # poorly conditioned (fp32 errors up to 1e-4 of a leaf's norm,
+        # tests/test_torch_dense_configs.py; hymba's grad norm after a step
+        # up to 3e-4 from float64, tests/test_torch_hymba.py), and AdamW's
+        # per-element normalisation turns an error in a gradient element
+        # near 0 into an update of the other sign: such a parameter parts
+        # by at most 2 lr a step. On the CPU, this run in fp32 leaves 0.20 % of minicpm-smoke's
         # parameters more than 1e-4 from the same run in float64 (up to
         # 1.4e-3), and the card leaves 0.29 % that far from the CPU; a wrong
         # gradient would move about half. So the losses are held to
@@ -1320,17 +1524,48 @@ def _reference_run(torch, dev, arch: str) -> None:
           "limits": limits})
 
 
+def _attention_f64(torch, q, k, v, *, causal=True, window=0, q_offset=0,
+                   kv_len=None):
+    """The plain version's attention (the same masks) in float64: the
+    yardstick of the kernel's and the plain version's fp32 rounding."""
+    B, Sq, H, hd = q.shape
+    kv_len = k.shape[1] if kv_len is None else kv_len
+    rep = H // k.shape[2]
+    kk = k[:, :kv_len].double().repeat_interleave(rep, 2)
+    vv = v[:, :kv_len].double().repeat_interleave(rep, 2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kk) / math.sqrt(hd)
+    iq = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    jk = torch.arange(kv_len, device=q.device)[None, :]
+    ok = torch.ones((Sq, kv_len), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= jk <= iq
+    if window > 0:
+        ok &= jk > iq - window
+    s = s.masked_fill(~ok, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), vv)
+
+
 @contextlib.contextmanager
 def _held_to_plain(torch, seen: dict):
     """While it is open, every serving attention call (models/attention.py's
     flash op) at head dim 12, which must take the general route, is also run
     through the plain version and compared at FLASH_TOL (fp32; plus one
     bf16 ulp in bf16); `seen` gets the count of such calls and their max
-    error. The plain runs launch nothing."""
+    error. The plain runs launch nothing.
+
+    An output element is a convex combination of value rows, so its fp32
+    rounding scales with |v|, not with itself: at the hd-12 smoke configs'
+    |q|, |k|, |v| ~ 20 (their init scales a layer's weights by 1/sqrt(L))
+    the plain version itself parts from a float64 run by more than the
+    limit allows near an output of 0, and so may the kernel. An fp32 call
+    past the limit is then held to the float64 attention instead, at the
+    fp32 limit on the scale of the values it averages: each element within
+    FLASH_TOL (1 + max |v|) of it; `seen["held_to_float64"]` lists such
+    calls with the kernel's gap to float64 and the plain version's."""
     from repro_torch.kernels.flash_attention import kernel, ref
     from repro_torch.models import attention as attn
     orig = attn.flash_attention
-    seen.update(calls=0, max_abs_err=0.0)
+    seen.update(calls=0, max_abs_err=0.0, held_to_float64=[])
 
     def held(q, k, v, **kw):
         out = orig(q, k, v, **kw)
@@ -1338,9 +1573,25 @@ def _held_to_plain(torch, seen: dict):
             require(kernel.pick_route(q, k, v) == "flash_attention",
                     "an hd-12 call left the general route")
             want = ref.flash_attention_ref(q, k, v, **kw)
-            seen["max_abs_err"] = max(seen["max_abs_err"], _compare(
-                torch, out, want, f"hd 12 serving call {tuple(q.shape)}",
-                FLASH_TOL["float32"], ulp=q.dtype == torch.bfloat16))
+            what = f"hd 12 serving call {tuple(q.shape)} {kw}"
+            try:
+                err = _compare(torch, out, want, what, FLASH_TOL["float32"],
+                               ulp=q.dtype == torch.bfloat16)
+            except AssertionError:
+                if q.dtype != torch.float32:
+                    raise
+                truth = _attention_f64(torch, q, k, v, **kw)
+                gaps = [float((x.double() - truth).abs().max())
+                        for x in (out, want)]
+                limit = FLASH_TOL["float32"] * (1 + float(v.abs().max()))
+                require(gaps[0] <= limit, f"{what}: the kernel is {gaps[0]} "
+                        f"from float64 (limit {limit}), the plain version "
+                        f"{gaps[1]}")
+                seen["held_to_float64"].append(
+                    {"q": list(q.shape), "kernel_gap": gaps[0],
+                     "plain_gap": gaps[1], "limit": limit})
+                err = float((out - want).abs().max())
+            seen["max_abs_err"] = max(seen["max_abs_err"], err)
             seen["calls"] += 1
         return out
 
@@ -1351,50 +1602,88 @@ def _held_to_plain(torch, seen: dict):
         attn.flash_attention = orig
 
 
+def _smoke_serve_launches(cfg, n_new: int) -> dict:
+    """The flash launches of a smoke config's generate run (fp32, a
+    12-token prompt, n_new tokens): a prompt of 12 x rep > 16 rows a kv
+    head on the general route and each decode step on flash_decode; every
+    call at hd 12 on the general route (flash_decode has no hd-12
+    template: minicpm, qwen2-vl, hymba); whisper's encoder (24 frames a
+    kv head) on the general route, and its 12-row prompt and every
+    cross-attention on flash_decode."""
+    from repro_torch.kernels.flash_attention import kernel
+    L = cfg.n_layers
+    if cfg.hd not in kernel.DECODE_HEAD_DIMS:
+        return {"flash_attention": L * n_new, "flash_prefill": 0,
+                "flash_decode": 0}
+    if cfg.family == "whisper":
+        return {"flash_attention": cfg.encoder_layers, "flash_prefill": 0,
+                "flash_decode": 2 * L * n_new}
+    return {"flash_attention": L, "flash_prefill": 0,
+            "flash_decode": L * (n_new - 1)}
+
+
+def _smoke_forward_logits(torch, cfg, params, toks, extras):
+    """fp32 logits of the teacher-forced `forward` at every position."""
+    from repro_torch.models import hymba, rwkv6, transformer, whisper
+    if cfg.family == "rwkv6":
+        h = rwkv6.forward(cfg, params, toks)
+    elif cfg.family == "hymba":
+        h = hymba.forward(cfg, params, toks)
+    elif cfg.family == "whisper":
+        h = whisper.forward(cfg, params, toks, extras["frames"])
+    else:
+        h = transformer.forward(cfg, params, toks)
+        return h.float() @ transformer.unembed_matrix(cfg, params).float()
+    return h.float() @ params["lm_head"].float()
+
+
 def phase_serve_reference(torch, dev) -> dict:
-    """The six smoke configs, the same parameters on the card and on the
+    """The eight smoke configs, the same parameters on the card and on the
     CPU: greedy tokens equal, and on the card the prefill logits and every
-    decode step's logits equal `forward`'s at the same position (gemma3's
-    window of 16 is passed at position 16, so its rings wrap). The fp32
-    smoke prefills (hd 16, and hd 12 for minicpm and qwen2-vl) are the
+    decode step's logits equal `forward`'s at the same position (the
+    windows of 16 of gemma3 and hymba are passed at position 16, so their
+    rings wrap; whisper's 24 frames are standard normal). The fp32 smoke
+    prefills (hd 16, and hd 12 for minicpm, qwen2-vl and hymba) are the
     general flash_attention route's path, and at hd 12 so are the decode
-    steps, each call held to the plain version (`_held_to_plain`): returns
-    the route's launches in the card's generate runs."""
+    steps, each call held to the plain version (`_held_to_plain`); whisper
+    also puts its encoder there and its cross-attention on flash_decode
+    (`_smoke_serve_launches`). Returns the general route's launches in the
+    card's generate runs."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.flash_attention import kernel
-    from repro_torch.models import build_model, rwkv6, transformer
+    from repro_torch.models import build_model
     from repro_torch.train.serve import generate, pad_cache_to
     out = {}
     n_general = 0
     hd12 = {}
     B, prompt_len, total = 2, 12, 24
-    for arch in DENSE_ARCHS + ("rwkv6-7b",):
+    for arch in SERVE_REFERENCE_ARCHS:
         cfg = get_config(arch, smoke=True)
         model = build_model(cfg)
         cpu_params = model.init(5, "cpu")
         params = {k: v.to(dev) for k, v in cpu_params.items()}
-        toks = torch.from_numpy(np.random.default_rng(5).integers(
+        rng = np.random.default_rng(5)
+        toks = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (B, total))).long()
-        want = generate(model, cpu_params, toks[:, :prompt_len], 8)
+        extras = {}
+        if cfg.family == "whisper":
+            extras["frames"] = torch.from_numpy(rng.standard_normal(
+                (B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+        want = generate(model, cpu_params, toks[:, :prompt_len], 8, extras)
+        extras = {k: v.to(dev) for k, v in extras.items()}
         reset_launch_counts()
         seen = {}
         with _held_to_plain(torch, seen):
-            got = generate(model, params, toks[:, :prompt_len].to(dev), 8)
+            got = generate(model, params, toks[:, :prompt_len].to(dev), 8,
+                           extras)
         torch.cuda.synchronize()
         counts = launch_counts()
         require(torch.equal(got.cpu(), want), f"{cfg.name}: card tokens "
                 f"{got.tolist()} != CPU tokens {want.tolist()}")
         if cfg.family != "rwkv6":
-            # an fp32 prompt of 12 x rep rows per kv head: the general
-            # route; a decode step flash_decode's, but at hd 12, which it
-            # has no template for, the general route's one-warp plan
             n_general += counts["flash_attention"]
-            steps = 7 if cfg.hd in kernel.DECODE_HEAD_DIMS else 0
-            expect = {"flash_attention": cfg.n_layers * (8 - steps),
-                      "flash_prefill": 0,
-                      "flash_decode": cfg.n_layers * steps}
+            expect = _smoke_serve_launches(cfg, 8)
             require({k: counts[k] for k in expect} == expect,
                     f"{cfg.name}: launches {counts}, not {expect}")
             if cfg.hd == 12:
@@ -1403,17 +1692,13 @@ def phase_serve_reference(torch, dev) -> dict:
                 hd12[cfg.name] = seen
         toks = toks.to(dev)
         with torch.no_grad():
-            if cfg.family == "rwkv6":
-                h, w = rwkv6.forward(cfg, params, toks), params["lm_head"]
-            else:
-                h = transformer.forward(cfg, params, toks)
-                w = transformer.unembed_matrix(cfg, params)
-            full = h.float() @ w.float()
-            logits, cache = model.prefill(params,
-                                          {"tokens": toks[:, :prompt_len]})
+            full = _smoke_forward_logits(torch, cfg, params, toks, extras)
+            logits, cache = model.prefill(
+                params, {"tokens": toks[:, :prompt_len], **extras})
             err = _compare(torch, logits, full[:, prompt_len - 1],
                            f"{cfg.name} prefill vs forward", SERVE_TOL)
-            cache = pad_cache_to(cache, total)
+            cache = pad_cache_to(cache, total, keys=(
+                ("k", "v") if cfg.family == "whisper" else None))
             for pos in range(prompt_len, total):
                 lg, cache = model.decode_step(params, cache,
                                               toks[:, pos:pos + 1], pos)
@@ -1421,7 +1706,7 @@ def phase_serve_reference(torch, dev) -> dict:
                     torch, lg, full[:, pos],
                     f"{cfg.name} decode vs forward at {pos}", SERVE_TOL))
         out[cfg.name] = {"tokens_equal": True, "logits_max_abs_err": err}
-    require(len(hd12) == 2, f"hd-12 configs held: {sorted(hd12)}")
+    require(len(hd12) == 3, f"hd-12 configs held: {sorted(hd12)}")
     emit({"phase": "serve_reference", "limit": SERVE_TOL, **out,
           "flash_attention_launches": n_general,
           "general_route_hd12": {**hd12, "limit": FLASH_TOL["float32"]}})
@@ -1458,7 +1743,11 @@ KERNEL_SYMBOLS = {"chunk_reduce": "chunk_reduce_kernel",
 def _device_ms(torch, fn, iters: int, kernel: str) -> float:
     """The device time per call of `kernel`'s CUDA kernels, from
     torch.profiler's record of `iters` calls after one warm-up call: the
-    kernels alone, without the host's work between launches."""
+    kernels alone, without the host's work between launches. Each of the
+    matching kernels runs once a call, so each one's total is divided by
+    the launches the profiler recorded of it, not by `iters`: on an H100
+    it once recorded 4 of 5 calls, and the W-way form's time per call
+    then read below its byte bound."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
@@ -1467,10 +1756,10 @@ def _device_ms(torch, fn, iters: int, kernel: str) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if KERNEL_SYMBOLS[kernel] in e.key)
-    require(us > 0, f"the profiler recorded no device time for {kernel}")
-    return us / iters / 1e3
+    found = [e for e in prof.key_averages()
+             if KERNEL_SYMBOLS[kernel] in e.key and e.device_time_total > 0]
+    require(bool(found), f"the profiler recorded no device time for {kernel}")
+    return sum(e.device_time_total / e.count for e in found) / 1e3
 
 
 def _bound(bytes_moved: int, flops: int, peak: float = FP32_FLOPS) -> dict:
@@ -1483,33 +1772,43 @@ def _bound(bytes_moved: int, flops: int, peak: float = FP32_FLOPS) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def phase_timing(torch, dev, n_grad: int, n_grad_internlm2: int,
+def phase_timing(torch, dev, n_grad: int, internlm2: dict, hymba: dict,
                  errs) -> dict:
     """Both forms at the main path's shapes: the healthy step's W=4 psum of
     the bf16 gradient vector (and the W=2 one of the elastic run's 2
     members), and one degraded reduce-scatter hop (three fp32 chunk pairs
     of the padded vector, p=4, straggler 1); both also at internlm2-1.8b's
     gradient length (whose chunks, padded only to a multiple of 3, would
-    have an odd length)."""
+    have an odd length) and at hymba-1.5b's (the healthy sync's bf16
+    buffer and its fp32 one; the degraded sync's one fp32 buffer of
+    both). `internlm2` and `hymba` are their gradient element counts by
+    dtype."""
     out = {}
     gen = torch.Generator(device=dev).manual_seed(2)
+    n_internlm2, n_hymba = sum(internlm2.values()), sum(hymba.values())
     out["chunk_reduce"] = _wway_timing(torch, gen, dev, 4, n_grad, errs)
     out["chunk_reduce_w2"] = _wway_timing(torch, gen, dev, 2, n_grad, errs)
     out["chunk_reduce_internlm2"] = _wway_timing(torch, gen, dev, 4,
-                                                 n_grad_internlm2, errs)
+                                                 n_internlm2, errs)
+    for dtype, n in sorted(hymba.items()):
+        out[f"chunk_reduce_hymba_{dtype}"] = _wway_timing(
+            torch, gen, dev, 4, n, errs, getattr(torch, dtype))
     out["chunk_reduce_pairs"] = _pairs_timing(torch, gen, dev, n_grad, errs)
     out["chunk_reduce_pairs_internlm2"] = _pairs_timing(
-        torch, gen, dev, n_grad_internlm2, errs)
+        torch, gen, dev, n_internlm2, errs)
+    out["chunk_reduce_pairs_hymba"] = _pairs_timing(torch, gen, dev, n_hymba,
+                                                    errs)
     emit({"phase": "timing", **out})
     return {k: {f: v[f] for f in LINE_FIELDS} for k, v in out.items()}
 
 
-def _wway_timing(torch, gen, dev, W: int, n: int, errs) -> dict:
-    """The healthy sync's W-way sum of a bf16 (W, n) stack, against its
-    plain version, timed."""
+def _wway_timing(torch, gen, dev, W: int, n: int, errs,
+                 dtype=None) -> dict:
+    """The healthy sync's W-way sum of a (W, n) stack (bf16 unless
+    `dtype`), against its plain version, timed."""
     from repro_torch.kernels.chunk_reduce import ops, ref
-    parts = torch.randn((W, n), generator=gen, device=dev,
-                        dtype=torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    parts = torch.randn((W, n), generator=gen, device=dev, dtype=dtype)
     got = ops.chunk_reduce(parts)
     errs["chunk_reduce"] = max(errs["chunk_reduce"], _compare(
         torch, got, ref.chunk_reduce_ref(parts), f"W-way W={W} N={n}"))
@@ -1521,7 +1820,7 @@ def _wway_timing(torch, gen, dev, W: int, n: int, errs) -> dict:
         "plain_ms": _cuda_ms(torch, lambda: ref.chunk_reduce_ref(parts), 5),
         **_bound((W + 1) * n * parts.element_size(), (W - 1) * n),
         "library_ms": _cuda_ms(torch, lambda: parts.sum(0), 10),
-        "shape": [W, n], "dtype": "bfloat16"}
+        "shape": [W, n], "dtype": str(dtype).removeprefix("torch.")}
     del parts
     torch.cuda.empty_cache()
     return res
@@ -1626,6 +1925,21 @@ def _flash_timing(torch, q, k, v, out, *, route: str, q_offset: int,
         "dtype": str(q.dtype).removeprefix("torch.")}
 
 
+def _timed_call(torch, errs, what, q, k, v, *, route: str, causal: bool,
+                q_offset: int, kv_len: int, iters: int = 200) -> dict:
+    """One flash call checked against its plain version (the fp32 limit
+    plus one bf16 ulp), then `_flash_timing` at its shape."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    out = ops.flash_attention(q, k, v, **kw)
+    errs[route] = max(errs[route], _compare(
+        torch, out, ref.flash_attention_ref(q, k, v, **kw), f"timed {what}",
+        FLASH_TOL["float32"], ulp=True))
+    res = _flash_timing(torch, q, k, v, out, route=route, iters=iters, **kw)
+    torch.cuda.empty_cache()
+    return res
+
+
 def _wkv_timing(torch, x, state0, out, iters: int) -> dict:
     """wkv at one shape: kernel (CUDA events over back-to-back calls of the
     op, host included, and its device time), plain version, no library call
@@ -1655,7 +1969,9 @@ def phase_serve_timing(torch, dev, errs) -> dict:
     realistic length, (8, 2048, 4/2, 16) and (8, 2048, 6/6, 12), in fp32
     and bf16; flash_prefill and flash_decode at gemma3-27b's local prefill
     (window 1024) and ring decode (1024 slots) and at minicpm-2b's and
-    qwen2-vl-2b's prefill and mid-decode step; wkv at
+    qwen2-vl-2b's prefill and mid-decode step; hymba-1.5b's windowed
+    prefill and ring decode and whisper-base's encoder, cross-attention
+    (prompt and decode step) and self-attention decode step; wkv at
     rwkv6-7b's prefill and decode shapes. The `kernels` line takes
     flash_decode's decode shape, the general route's qwen3 fp32 prefill and
     wkv's prefill shape."""
@@ -1771,6 +2087,54 @@ def phase_serve_timing(torch, dev, errs) -> dict:
             pos + 1, Bm * KVm, sms)
         del kc, vc, q, out
         torch.cuda.empty_cache()
+
+    # hymba-1.5b: the windowed prefill (25/5 heads, hd 64, window 1024)
+    # and a decode step of 5 rows a kv head over a full 1024-slot ring;
+    # whisper-base: the encoder's non-causal prefill over 1500 frames, the
+    # cross-attention of the 4-token prompt and of a decode step over
+    # them, and a mid-run self-attention decode step (kv_len 116)
+    cfg = _serve_cfg(SERVE_HYMBA)
+    Bh, Sh, w = SERVE_HYMBA["batch"], SERVE_HYMBA["prompt_len"], \
+        cfg.hymba_window
+    Hh, KVh, hdh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = (rand((Bh, Sh, Hh, hdh)), rand((Bh, Sh, KVh, hdh)),
+               rand((Bh, Sh, KVh, hdh)))
+    out = fops.flash_attention(q, k, v, window=w)
+    errs["flash_prefill"] = max(errs["flash_prefill"], _compare(
+        torch, out, fref.flash_attention_ref(q, k, v, window=w),
+        "timed hymba prefill", FLASH_TOL["float32"], ulp=True))
+    res["hymba_prefill"] = _flash_timing(
+        torch, q, k, v, out, route="flash_prefill", q_offset=0, kv_len=Sh,
+        causal=True, iters=20, window=w)
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    ring_k, ring_v = rand((Bh, w, KVh, hdh)), rand((Bh, w, KVh, hdh))
+    q = rand((Bh, 1, Hh, hdh))
+    res["hymba_ring_decode"] = _timed_call(
+        torch, errs, "hymba ring decode", q, ring_k, ring_v,
+        route="flash_decode", causal=False, q_offset=0, kv_len=w)
+    del ring_k, ring_v, q
+    cfg = _serve_cfg(SERVE_WHISPER)
+    Bw, F = SERVE_WHISPER["batch"], cfg.n_audio_frames
+    P, n_new = SERVE_WHISPER["prompt_len"], SERVE_WHISPER["new_tokens"]
+    Hw, KVw, hdw = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = (rand((Bw, F, Hw, hdw)), rand((Bw, F, KVw, hdw)),
+               rand((Bw, F, KVw, hdw)))
+    res["whisper_encoder"] = _timed_call(
+        torch, errs, "whisper encoder", q, k, v, route="flash_prefill",
+        causal=False, q_offset=0, kv_len=F, iters=20)
+    for tag, Sq in (("prompt", P), ("decode", 1)):
+        res[f"whisper_cross_{tag}"] = _timed_call(
+            torch, errs, f"whisper cross {tag}", rand((Bw, Sq, Hw, hdw)),
+            k, v, route="flash_decode", causal=False, q_offset=0, kv_len=F)
+    del q, k, v
+    kc, vc = (rand((Bw, P + n_new, KVw, hdw)) for _ in range(2))
+    pos = P + n_new // 2
+    res["whisper_self_decode"] = _timed_call(
+        torch, errs, "whisper self decode", rand((Bw, 1, Hw, hdw)), kc, vc,
+        route="flash_decode", causal=True, q_offset=pos, kv_len=pos + 1)
+    del kc, vc
+    torch.cuda.empty_cache()
 
     Bw, Sw, Hw, hdw = _rwkv6_wkv_shape()
     x = _wkv_inputs(torch, gen, dev, Bw, Sw, Hw, hdw)

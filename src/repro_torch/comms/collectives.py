@@ -23,7 +23,6 @@ them bit for bit.
 """
 from __future__ import annotations
 
-import functools
 from typing import Iterable, Optional, Sequence
 
 import torch
@@ -125,51 +124,58 @@ def optcc_allreduce(x: torch.Tensor, straggler: int,
 
 def _pack(members: Iterable[Sequence[torch.Tensor]], p: int,
           dtype: Optional[torch.dtype], multiple: int):
-    """Flatten-concat member i's leaves into row i of one (p, npad) buffer
-    of `dtype` (None: the leaves' common dtype), consuming the members one
-    at a time (only one member's leaves need be alive at once); the tail
-    past the leaves, up to a multiple of `multiple`, is zero."""
-    buf, shapes = None, None
+    """Flatten-concat member i's leaves into row i of (p, npad) buffers,
+    consuming the members one at a time (only one member's leaves need be
+    alive at once): one buffer of `dtype` for every leaf, or with `dtype`
+    None one buffer per leaf dtype, each holding the leaves of its dtype
+    in their order; the tail of a buffer past its leaves, up to a
+    multiple of `multiple`, is zero. Returns ({buffer dtype: buffer},
+    layout: (buffer dtype, offset, shape, dtype) per leaf)."""
+    bufs, layout = None, None
     count = 0
     for i, leaves in enumerate(members):
         if i >= p:
             raise ValueError(f"more than p={p} members")
-        if buf is None:
-            shapes = [(leaf.shape, leaf.dtype) for leaf in leaves]
-            n = sum(leaf.numel() for leaf in leaves)
-            npad = n + (-n) % multiple
-            dtype = dtype or functools.reduce(
-                torch.promote_types, (leaf.dtype for leaf in leaves))
-            buf = torch.empty((p, npad), dtype=dtype,
-                              device=leaves[0].device)
-            buf[:, n:].zero_()
-        off = 0
-        for leaf in leaves:
-            buf[i, off:off + leaf.numel()].copy_(leaf.reshape(-1))
-            off += leaf.numel()
+        if bufs is None:
+            layout, sizes = [], {}
+            for leaf in leaves:
+                group = dtype or leaf.dtype
+                off = sizes.get(group, 0)
+                layout.append((group, off, leaf.shape, leaf.dtype))
+                sizes[group] = off + leaf.numel()
+            bufs = {}
+            for group, n in sizes.items():
+                bufs[group] = torch.empty((p, n + (-n) % multiple),
+                                          dtype=group,
+                                          device=leaves[0].device)
+                bufs[group][:, n:].zero_()
+        for (group, off, shape, _), leaf in zip(layout, leaves):
+            bufs[group][i, off:off + leaf.numel()].copy_(leaf.reshape(-1))
         count += 1
     if count != p:
         raise ValueError(f"expected {p} members, got {count}")
-    return buf, shapes
+    return bufs, layout
 
 
-def _unpack(flat: torch.Tensor, shapes) -> list[torch.Tensor]:
-    outs, off = [], 0
-    for shape, dtype in shapes:
-        size = shape.numel()
-        outs.append(flat[off:off + size].view(shape).to(dtype))
-        off += size
-    return outs
+def _unpack(flats: dict, layout) -> list[torch.Tensor]:
+    """The leaves of `layout` out of the summed (n,) buffer of each
+    group, each cast back to its dtype."""
+    return [flats[group][off:off + shape.numel()].view(shape).to(dtype)
+            for group, off, shape, dtype in layout]
 
 
 def psum_tree(members: Iterable[Sequence[torch.Tensor]],
               tr: LocalTransport) -> list[torch.Tensor]:
-    """lax.psum over a list of leaves per member: flatten-concat in the
-    leaves' common dtype, one W-way chunk_reduce, split. `members` yields
-    p leaf lists of equal shapes; returns the summed leaves every member
-    holds."""
-    buf, shapes = _pack(members, tr.p, None, 1)
-    return _unpack(psum(buf), shapes)
+    """lax.psum over a list of leaves per member, each leaf summed in its
+    own dtype as JAX psums it: flatten-concat the leaves of each dtype into
+    one buffer, one W-way chunk_reduce per buffer, split. (One buffer in
+    the leaves' common dtype would be the same sum, bit for bit - the
+    kernel adds exact inputs in fp32 and rounds once - but hymba's bf16
+    gradients beside its fp32 leaves would then take twice the memory.)
+    `members` yields p leaf lists of equal shapes; returns the summed
+    leaves every member holds."""
+    bufs, layout = _pack(members, tr.p, None, 1)
+    return _unpack({g: psum(buf) for g, buf in bufs.items()}, layout)
 
 
 def optcc_allreduce_tree(members: Iterable[Sequence[torch.Tensor]],
@@ -183,6 +189,8 @@ def optcc_allreduce_tree(members: Iterable[Sequence[torch.Tensor]],
     whole number of 16-byte vectors, so every row that the pair-form
     kernel adds starts 16-byte aligned (on an H100 it took 3x as long at
     internlm2-1.8b's odd chunk length)."""
-    buf, shapes = _pack(members, tr.p, torch.float32, 4 * max(tr.p - 1, 1))
+    bufs, layout = _pack(members, tr.p, torch.float32,
+                         4 * max(tr.p - 1, 1))
+    buf = bufs[torch.float32]
     optcc_allreduce_(buf, straggler, tr)
-    return _unpack(buf[0], shapes)
+    return _unpack({torch.float32: buf[0]}, layout)

@@ -7,8 +7,17 @@ unless `--device cpu` is given; on CUDA every attention of the dense and
 vlm decoders (qwen3, internlm2, minicpm, gemma3, qwen2-vl) goes through the
 flash-attention kernels (gemma3's local layers with their window in the
 prefill and over their rolling caches in decode; qwen2-vl's prompt is text,
-its M-RoPE ids equal) and every rwkv6 recurrence through the wkv kernel.
-gemma3-27b at full width (54.0 GB of bf16 weights) fits one 80 GB card.
+its M-RoPE ids equal), hymba's windowed attention (the prefill within its
+window, each decode step over its ring; the Mamba scan is plain PyTorch)
+and whisper's encoder, cross-attention and decoder, and every rwkv6
+recurrence through the wkv kernel. gemma3-27b at full width (54.0 GB of
+bf16 weights) fits one 80 GB card.
+
+whisper takes the stubbed conv output as its audio: `--frames` frames
+(default the config's n_audio_frames, 1500 = 30 s) of standard-normal
+(B, F, d) embeddings drawn in fp32 from `--seed` after the prompt, and
+cast to the compute dtype, the dtype the JAX package's dry run gives them
+(`repro/launch/mesh.py`): bf16 at full width, fp32 in the smoke config.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --smoke --device cpu
@@ -16,7 +25,9 @@ gemma3-27b at full width (54.0 GB of bf16 weights) fits one 80 GB card.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --smoke --device cpu
-  (likewise --arch internlm2-1.8b, minicpm-2b or qwen2-vl-2b)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+      --smoke --device cpu
+  (likewise --arch internlm2-1.8b, minicpm-2b, qwen2-vl-2b or hymba-1.5b)
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import launch_counts
 from repro_torch.models import build_model
+from repro_torch.models.common import torch_dtype
 from repro_torch.train.serve import generate
 
 
@@ -44,6 +56,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=24)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="whisper: audio frames (default n_audio_frames)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.new_tokens < 1 or args.prompt_len < 1 or args.batch < 1:
@@ -56,6 +70,15 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(args.seed)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen).to(device)
+    extras = None
+    if cfg.family == "whisper":
+        n_frames = args.frames or cfg.n_audio_frames
+        if not 1 <= n_frames <= cfg.n_audio_frames:
+            raise ValueError(f"--frames must be in [1, {cfg.n_audio_frames}]")
+        frames = torch.randn((args.batch, n_frames, cfg.d_model),
+                             generator=gen)
+        extras = {"frames": frames.to(device,
+                                      torch_dtype(cfg.compute_dtype))}
     print(f"{cfg.name}: {model.param_count(params) / 1e6:.2f}M params "
           f"({cfg.family}, {cfg.n_layers} layers), vocab={cfg.vocab_size}, "
           f"on {device}", flush=True)
@@ -64,7 +87,8 @@ def main(argv=None):
         torch.cuda.reset_peak_memory_stats(device)
     before = launch_counts()
     run: dict = {}
-    tokens = generate(model, params, prompt, args.new_tokens, log=run)
+    tokens = generate(model, params, prompt, args.new_tokens, extras,
+                      log=run)
     n_new = args.batch * args.new_tokens
     total = run["prefill_seconds"] + run["decode_seconds"]
     steps = args.new_tokens - 1
@@ -72,6 +96,7 @@ def main(argv=None):
         "arch": cfg.name, "n_layers": cfg.n_layers,
         "params": model.param_count(params), "batch": args.batch,
         "prompt_len": args.prompt_len, "new_tokens": args.new_tokens,
+        "frames": None if extras is None else extras["frames"].shape[1],
         "device": str(device),
         "prefill_seconds": run["prefill_seconds"],
         "decode_seconds": run["decode_seconds"],

@@ -17,9 +17,12 @@ run resumed inside a degraded window syncs with psum until the next event.
 
 The DP members are `--dp` rows of one tensor on one device (the
 single-process transport), standing in for JAX's forced device count.
-Runs on CUDA unless `--device cpu` is given. qwen3-1.7b and internlm2-1.8b
-train at full width on one card; qwen2-vl-2b trains on text batches (no
-patch prefix, as the JAX launcher). gemma3-27b and minicpm-2b train only at
+Runs on CUDA unless `--device cpu` is given. qwen3-1.7b, internlm2-1.8b and
+hymba-1.5b (bf16 leaves beside fp32 ones: the healthy sync sums each dtype
+in its own buffer) train at full width on one card; qwen2-vl-2b trains on
+text batches (no patch prefix, as the JAX launcher). whisper-base does not
+train here: its loss needs frames and the batches are tokens only, as in
+the JAX launcher. gemma3-27b and minicpm-2b train only at
 their smoke configs (`--smoke`): gemma3's full-width train state (bf16
 params, fp32 moments, ~270 GB) does not fit one card, and neither does
 minicpm-2b's at DP 4 (2.72e9 params, ~78 GiB by scaling qwen3-1.7b's
@@ -32,7 +35,7 @@ minicpm-2b's at DP 4 (2.72e9 params, ~78 GiB by scaling qwen3-1.7b's
       --smoke --steps 6 --fail-at 2 --repair-at 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       --smoke --steps 6 --fail-at 2 --repair-at 4 --device cpu
-  (likewise --arch minicpm-2b or --arch qwen2-vl-2b)
+  (likewise --arch minicpm-2b, qwen2-vl-2b or hymba-1.5b)
 """
 from __future__ import annotations
 

@@ -1,9 +1,12 @@
 """Model API: build_model(cfg) -> Model with init/loss/prefill/decode_step/
-init_cache (the port of `repro/models/api.py` for the dense, vlm and rwkv6
-families; dense and vlm share the transformer, as in the JAX package).
+init_cache (the port of `repro/models/api.py` for the dense, vlm, rwkv6,
+hymba and whisper families; dense and vlm share the transformer, as in
+the JAX package).
 
-  loss:        (params, {tokens, labels, [positions], [prefix_embeds]})
-  prefill:     (params, {tokens (B,S)}) -> (logits (B,V) fp32, cache)
+  loss:        (params, {tokens, labels, [frames], [positions],
+                         [prefix_embeds]})
+  prefill:     (params, {tokens (B,S), [frames (B,F,d)]})
+               -> (logits (B,V) fp32, cache)
   decode_step: (params, cache, tokens (B,1), pos int) -> (logits, cache)
   init_cache:  (batch, max_len, device="cuda") -> cache
 """
@@ -16,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import hymba, rwkv6, transformer, whisper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +47,16 @@ def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "rwkv6":
         mod, loss = rwkv6, _no_loss(cfg)
     else:
-        transformer.check_supported(cfg)
-        mod = transformer
-        loss = lambda p, b: transformer.loss_fn(cfg, p, b)   # noqa: E731
+        mod = {"hymba": hymba, "whisper": whisper}.get(cfg.family)
+        if mod is None:
+            transformer.check_supported(cfg)
+            mod = transformer
+        loss = lambda p, b: mod.loss_fn(cfg, p, b)   # noqa: E731
+    if cfg.family == "whisper":
+        prefill = lambda p, b: whisper.prefill(   # noqa: E731
+            cfg, p, b["tokens"], b["frames"])
+    else:
+        prefill = lambda p, b: mod.prefill(cfg, p, b["tokens"])  # noqa: E731
 
     def init(seed: int, device: str | torch.device = "cuda") -> dict:
         gen = torch.Generator(device=resolve_device(device))
@@ -54,8 +64,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return mod.init_params(cfg, gen)
 
     return Model(
-        cfg=cfg, init=init, loss=loss,
-        prefill=lambda p, b: mod.prefill(cfg, p, b["tokens"]),
+        cfg=cfg, init=init, loss=loss, prefill=prefill,
         decode_step=lambda p, c, t, pos: mod.decode_step(cfg, p, c, t, pos),
         init_cache=lambda b, s, device="cuda": mod.init_cache(cfg, b, s,
                                                               device))

@@ -3,8 +3,9 @@
 Training: a direct quadratic path and a chunked online-softmax path, plain
 PyTorch, as the JAX package computes them in jnp outside any Pallas kernel
 (the flash kernel has no backward yet). Serving: `prefill_attention`,
-`decode_attention` and `ring_decode_attention` (a local layer's rolling
-cache) go through the flash-attention op, which is the Hopper kernel for
+`decode_attention`, `ring_decode_attention` (a local layer's rolling
+cache) and `full_attention` (whisper's encoder and cross-attention) go
+through the flash-attention op, which is the Hopper kernel for
 CUDA tensors and its plain version for CPU tensors. All softmax math is
 fp32.
 """
@@ -160,3 +161,18 @@ def ring_decode_attention(q, k_ring, v_ring, n_valid: int) -> torch.Tensor:
     which drops exactly the slots s > pos while pos < window.
     q: (B,1,H,hd) -> (B,1,H,hd)."""
     return flash_attention(q, k_ring, v_ring, causal=False, kv_len=n_valid)
+
+
+def full_attention(q, k, v) -> torch.Tensor:
+    """Every query over every key, no mask: one non-causal flash call
+    (whisper's encoder self-attention, and its decoder's cross-attention
+    over the encoder states in the prompt and in each decode step).
+    q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd) -> (B,Sq,H,hd) in q's dtype.
+
+    The JAX function softmaxes in fp32 whatever the input dtypes, so where
+    q and k differ (fp32 frames promote whisper's encoder, and so its
+    states, to fp32 beside a bf16 decoder) the narrower side is widened,
+    which is exact, and the output cast back to q's dtype."""
+    dt = torch.promote_types(q.dtype, k.dtype)
+    out = flash_attention(q.to(dt), k.to(dt), v.to(dt), causal=False)
+    return out.to(q.dtype)

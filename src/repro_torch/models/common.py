@@ -1,9 +1,9 @@
 """Shared building blocks: norms, RoPE and Qwen2-VL's M-RoPE, the SwiGLU
-MLP, embeddings, the vocab-chunked loss and the dense init (the port of
-`repro/models/common.py`'s dense-path functions)."""
+MLP, embeddings, the vocab-chunked loss, the dense init and the chunked
+time scan (the port of `repro/models/common.py`)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +22,17 @@ def layer_params(params: dict, layer: int) -> dict:
     path after "blocks/"."""
     return {k[len(BLOCKS):]: v[layer] for k, v in params.items()
             if k.startswith(BLOCKS)}
+
+
+def unbound_layers(params: dict, prefix: str = BLOCKS) -> list[dict]:
+    """Every layer's weights under `prefix` ("blocks/", or whisper's
+    "enc_blocks/" and "dec_blocks/"), keyed by the path after it, each
+    stack unbound once (so autograd gathers a stacked weight's layer
+    gradients in one op)."""
+    stacks = {k[len(prefix):]: v.unbind(0) for k, v in params.items()
+              if k.startswith(prefix)}
+    n = len(next(iter(stacks.values())))
+    return [{k: v[layer] for k, v in stacks.items()} for layer in range(n)]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -146,3 +157,26 @@ def init_dense(shape: tuple, generator: torch.Generator,
                                 dtype=torch.float32,
                                 device=generator.device).mul_(scale))
     return out
+
+
+def chunked_scan(chunk_fn: Callable, init, xs: Sequence[torch.Tensor],
+                 chunk: int):
+    """The time scan of JAX's `chunked_scan` as a plain loop over chunks.
+
+    xs: tensors with a leading time axis of length S. As in JAX, the time
+    axis is zero-padded to a multiple of `chunk` = min(chunk, S) and the
+    padded steps run too, so the final carry is the one after them.
+    `chunk_fn(carry, xs_chunk) -> (carry, ys_chunk)` runs one chunk's
+    steps in order (JAX's inner `lax.scan`). JAX rematerializes each chunk
+    in the backward; here autograd keeps every step (at the training
+    path's seq 128 the scan is one chunk). Returns (carry, ys cut to S)."""
+    S = xs[0].shape[0]
+    chunk = max(1, min(chunk, S))
+    pad = (-S) % chunk
+    if pad:
+        xs = [F.pad(a, (0, 0) * (a.dim() - 1) + (0, pad)) for a in xs]
+    carry, ys = init, []
+    for c0 in range(0, S + pad, chunk):
+        carry, y = chunk_fn(carry, [a[c0:c0 + chunk] for a in xs])
+        ys.append(y)
+    return carry, torch.cat(ys)[:S]

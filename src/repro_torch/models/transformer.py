@@ -25,7 +25,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (BLOCKS, apply_mrope, apply_rope,
                                        chunked_softmax_xent, embed_tokens,
                                        init_dense, layer_params, rms_norm,
-                                       swiglu, torch_dtype)
+                                       swiglu, torch_dtype, unbound_layers)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -63,7 +63,10 @@ def _layer_window(cfg: ModelConfig, is_global: bool) -> int:
 # ----------------------------------------------------------------------------
 
 def init_block_params(cfg: ModelConfig, generator: torch.Generator,
-                      n_layers: int) -> dict:
+                      n_layers: int, cross_attn: bool = False) -> dict:
+    """The stacked (n_layers, ...) weights of a block; with `cross_attn`
+    also its cross-attention's (whisper's decoder: ln_x, xq, xk, xv,
+    xo)."""
     hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     d, f = cfg.d_model, cfg.d_ff
     L = n_layers
@@ -82,6 +85,9 @@ def init_block_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.qk_norm:
         params["q_norm"] = Z((hd,))
         params["k_norm"] = Z((hd,))
+    if cross_attn:
+        params.update(ln_x=Z((d,)), xq=W((d, H * hd)), xk=W((d, KV * hd)),
+                      xv=W((d, KV * hd)), xo=W((H * hd, d)))
     return params
 
 
@@ -161,11 +167,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     B, S, _ = x.shape
     if positions is None:
         positions = _positions(cfg, B, S, x.device)
-    # unbind once: autograd then stacks each weight's layer grads in one op
-    layers = {k[len(BLOCKS):]: v.unbind(0) for k, v in params.items()
-              if k.startswith(BLOCKS)}
-    for layer, is_global in enumerate(layer_is_global(cfg)):
-        bp = {k: v[layer] for k, v in layers.items()}
+    for bp, is_global in zip(unbound_layers(params), layer_is_global(cfg)):
         x = dense_block(cfg, x, bp, positions, bool(is_global))
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 

@@ -23,23 +23,27 @@ def make_serve_step(model: Model):
     return step
 
 
-def pad_cache_to(cache: dict, target_len: int) -> dict:
-    """Grow the *full-sequence* caches (k_glob / v_glob, length S on axis 2
-    of a 5-D tensor) to a decode budget with zeros; recurrent states (rwkv)
-    stay as they are."""
+def pad_cache_to(cache: dict, target_len: int, keys=None) -> dict:
+    """Grow the *full-sequence* caches (length S on axis 2 of a 5-D tensor)
+    to a decode budget with zeros. Only the named keys are padded (default
+    k_glob / v_glob): rings (hymba, gemma3's local layers), recurrent
+    states (rwkv, mamba) and cross-attention caches must not grow.
+    Whisper's self cache lives under "k" / "v": pass those."""
     out = dict(cache)
-    for key in FULL_SEQ_CACHE_KEYS:
+    for key in FULL_SEQ_CACHE_KEYS if keys is None else keys:
         x = out.get(key)
-        if x is not None and x.shape[2] < target_len:
+        if x is not None and x.dim() == 5 and x.shape[2] < target_len:
             out[key] = F.pad(x, (0, 0, 0, 0, 0, target_len - x.shape[2]))
     return out
 
 
 @torch.no_grad()
 def generate(model: Model, params: dict, prompt: torch.Tensor, max_new: int,
+             batch_extras: Optional[dict] = None,
              log: Optional[dict] = None) -> torch.Tensor:
-    """Greedy generation: prefill the prompt, then max_new - 1 decode
-    steps. Returns (B, max_new) int64 tokens: the prefill's argmax first.
+    """Greedy generation: prefill the prompt (with `batch_extras` in the
+    prefill's batch: whisper's frames), then max_new - 1 decode steps.
+    Returns (B, max_new) int64 tokens: the prefill's argmax first.
 
     If `log` is a dict, it gets the wall seconds of the prefill
     (`prefill_seconds`) and of the decode loop (`decode_seconds`), the
@@ -48,9 +52,11 @@ def generate(model: Model, params: dict, prompt: torch.Tensor, max_new: int,
     B, S = prompt.shape
     dev = prompt.device
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompt})
+    logits, cache = model.prefill(params, {"tokens": prompt,
+                                           **(batch_extras or {})})
     finite = torch.isfinite(logits).all()
-    cache = pad_cache_to(cache, S + max_new)
+    pad_keys = ("k", "v") if model.cfg.family == "whisper" else None
+    cache = pad_cache_to(cache, S + max_new, keys=pad_keys)
     tok = logits.argmax(-1)[:, None]
     if log is not None:
         synchronize(dev)

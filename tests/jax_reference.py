@@ -10,9 +10,9 @@ the tests run this file in a subprocess:
 
 The first two write their inputs and the JAX results to OUT.npz
 (`train_step` on ARCH's smoke config, qwen3-1.7b by default; any dense or
-vlm arch of the port: the tests run gemma3-27b and internlm2-1.8b, and a
-qwen2-vl-2b batch carries text only, no patch prefix, as the JAX
-launcher's does). `elastic`
+vlm arch of the port, or hymba-1.5b: the tests run gemma3-27b,
+internlm2-1.8b and hymba-1.5b, and a qwen2-vl-2b batch carries text only,
+no patch prefix, as the JAX launcher's does). `elastic`
 saves JAX's initial train state as DIR/ckpt/step_0, runs the JAX launcher
 from it with a node loss (ELASTIC_ARGV) and writes the launcher's printed
 lines and final parameters to DIR/elastic.npz. Importing this module (as
@@ -167,7 +167,7 @@ if __name__ == "__main__":
     ap.add_argument("out")
     ap.add_argument("--arch", default=TRAIN_ARCH,
                     choices=["qwen3-1.7b", "gemma3-27b", "internlm2-1.8b",
-                             "minicpm-2b", "qwen2-vl-2b"],
+                             "minicpm-2b", "qwen2-vl-2b", "hymba-1.5b"],
                     help="train_step's config (its smoke variant)")
     args = ap.parse_args()
     if args.what == "train_step":

@@ -30,7 +30,8 @@ for mod in ("kernels.chunk_reduce.kernel", "kernels.flash_attention.kernel",
             "kernels.wkv.kernel", "models.rwkv6", "train.serve",
             "launch.serve", "configs.rwkv6_7b", "configs.gemma3_27b",
             "configs.internlm2_1p8b", "configs.minicpm_2b",
-            "configs.qwen2_vl_2b",
+            "configs.qwen2_vl_2b", "configs.hymba_1p5b",
+            "configs.whisper_base", "models.hymba", "models.whisper",
             "checkpoint.ckpt",
             "checkpoint._msgpack"):
     assert "repro_torch." + mod in names, mod

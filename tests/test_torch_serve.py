@@ -1,5 +1,6 @@
 """The port's serving path against the JAX package, for the smoke configs
-of the served archs (qwen3, gemma3 with its rolling local caches, rwkv6):
+of the served archs (qwen3, gemma3 with its rolling local caches, rwkv6;
+hymba's and whisper's JAX parity is tests/test_torch_{hymba,whisper}.py):
 parameters from the JAX `init` go through `convert.py`; then prefill
 logits, every decode step's logits and cache, and the greedy tokens of
 `generate` are held against JAX's (2e-4, as
@@ -19,7 +20,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import (params_from_numpy,  # noqa: E402
                                  params_to_numpy)
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
-from repro_torch.models import build_model, rwkv6, transformer  # noqa: E402
+from repro_torch.models import (build_model, hymba, rwkv6,  # noqa: E402
+                                transformer, whisper)
 from repro_torch.train.serve import (generate, make_serve_step,  # noqa: E402
                                      pad_cache_to)
 from jax_reference import flat_numpy  # noqa: E402
@@ -30,11 +32,12 @@ B, PROMPT, TOTAL = 2, 12, 20
 CASES = [("qwen3-1.7b", False), ("gemma3-27b", False), ("rwkv6-7b", False),
          ("rwkv6-7b", True)]
 IDS = ["qwen3", "gemma3", "rwkv6-scan", "rwkv6-wkv-kernel"]
-# the smoke configs of the served archs (gemma3's window of 16 wraps its
-# rings before TOTAL; minicpm and qwen2-vl have head dim 12); the JAX
-# parity of the last three is tests/test_torch_dense_configs.py
+# the smoke configs of the served archs (gemma3's and hymba's windows of
+# 16 wrap their rings before TOTAL; minicpm, qwen2-vl and hymba have head
+# dim 12; whisper's prefill takes frames); the JAX parity of internlm2,
+# minicpm and qwen2-vl is tests/test_torch_dense_configs.py
 ARCHS = ["qwen3-1.7b", "gemma3-27b", "rwkv6-7b", "internlm2-1.8b",
-         "minicpm-2b", "qwen2-vl-2b"]
+         "minicpm-2b", "qwen2-vl-2b", "hymba-1.5b", "whisper-base"]
 
 
 @pytest.fixture(scope="module")
@@ -128,12 +131,28 @@ def test_rwkv6_prefill_state_at_a_ragged_chunk_matches_jax_kernel_path(jx):
         _close(cache[key], jcache[key], f"prefill cache {key}")
 
 
-def _forward_logits(cfg, params, tokens):
+def _extras(cfg, seed=7):
+    """The prefill batch's extras: whisper's frames (standard normal, as
+    tests/test_arch_smoke.py draws them), none for the others."""
+    if cfg.family != "whisper":
+        return {}
+    return {"frames": torch.from_numpy(np.random.default_rng(seed)
+                                       .standard_normal((B, cfg.n_audio_frames,
+                                                         cfg.d_model))
+                                       .astype(np.float32))}
+
+
+def _forward_logits(cfg, params, tokens, extras):
     if cfg.family == "rwkv6":
-        return rwkv6.forward(cfg, params, tokens).float() \
-            @ params["lm_head"].float()
-    return transformer.forward(cfg, params, tokens).float() \
-        @ transformer.unembed_matrix(cfg, params).float()
+        h = rwkv6.forward(cfg, params, tokens)
+    elif cfg.family == "hymba":
+        h = hymba.forward(cfg, params, tokens)
+    elif cfg.family == "whisper":
+        h = whisper.forward(cfg, params, tokens, extras["frames"])
+    else:
+        return transformer.forward(cfg, params, tokens).float() \
+            @ transformer.unembed_matrix(cfg, params).float()
+    return h.float() @ params["lm_head"].float()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -146,15 +165,21 @@ def test_decode_matches_forward(arch):
     params = model.init(3, "cpu")
     toks = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg.vocab_size, (B, TOTAL))).long()
+    extras = _extras(cfg)
     with torch.no_grad():
-        full = _forward_logits(cfg, params, toks)
-        logits, cache = model.prefill(params, {"tokens": toks[:, :PROMPT]})
+        full = _forward_logits(cfg, params, toks, extras)
+        logits, cache = model.prefill(params, {"tokens": toks[:, :PROMPT],
+                                               **extras})
         _close(logits, _np(full[:, PROMPT - 1]), "prefill vs forward")
-        cache = pad_cache_to(cache, TOTAL)
+        cache = pad_cache_to(cache, TOTAL, keys=_pad_keys(cfg))
         for pos in range(PROMPT, TOTAL):
             lg, cache = model.decode_step(params, cache,
                                           toks[:, pos:pos + 1], pos)
             _close(lg, _np(full[:, pos]), f"decode vs forward at {pos}")
+
+
+def _pad_keys(cfg):
+    return ("k", "v") if cfg.family == "whisper" else None
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -163,8 +188,9 @@ def test_serve_step_is_the_argmax_of_decode_step(arch):
     params = model.init(4, "cpu")
     prompt = torch.arange(10).reshape(2, 5)
     with torch.no_grad():
-        _, cache = model.prefill(params, {"tokens": prompt})
-        cache = pad_cache_to(cache, 6)
+        _, cache = model.prefill(params, {"tokens": prompt,
+                                          **_extras(model.cfg)})
+        cache = pad_cache_to(cache, 6, keys=_pad_keys(model.cfg))
         twin = {k: v.clone() for k, v in cache.items()}
         nxt, _ = make_serve_step(model)(params, cache, prompt[:, -1:], 5)
         logits, _ = model.decode_step(params, twin, prompt[:, -1:], 5)
@@ -184,6 +210,21 @@ def test_pad_cache_to_grows_only_full_sequence_caches():
     assert out["wkv"] is state
     assert out["k_loc"] is ring and out["v_loc"] is ring
     assert pad_cache_to({"k_glob": kv}, 4)["k_glob"] is kv
+
+
+def test_pad_cache_to_grows_only_the_named_keys():
+    """whisper pads its self cache "k" / "v" and never its cross cache;
+    hymba's "k" / "v" rings, conv and ssm states are not named by
+    default, so they never grow."""
+    self_kv = torch.ones((2, 3, 5, 2, 4))
+    cross = torch.ones((2, 3, 24, 2, 4))
+    out = pad_cache_to({"k": self_kv, "v": self_kv, "xk": cross,
+                        "xv": cross}, 9, keys=("k", "v"))
+    assert out["k"].shape == (2, 3, 9, 2, 4) and out["xk"] is cross
+    assert torch.equal(out["v"][:, :, :5], self_kv)
+    ring, conv = torch.ones((2, 3, 16, 2, 4)), torch.ones((2, 3, 3, 8))
+    out = pad_cache_to({"k": ring, "v": ring, "conv": conv}, 40)
+    assert out["k"] is ring and out["v"] is ring and out["conv"] is conv
 
 
 def test_rwkv6_params_convert_one_to_one_with_per_leaf_dtypes(jx):
@@ -244,16 +285,21 @@ def test_cuda_serve_matches_cpu(arch):
     params = model.init(3, "cpu")
     prompt = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg.vocab_size, (B, PROMPT))).long()
-    want = generate(model, params, prompt, 8)
+    extras = _extras(cfg)
+    want = generate(model, params, prompt, 8, extras)
     tokens, log = serve_main(["--arch", arch, "--smoke", "--batch", "2",
                               "--prompt-len", "8", "--new-tokens", "4"])
     # one kernel launch per layer in the prefill and each decode step; for
-    # qwen3 and gemma3 any of the flash routes (this 8-token prompt of 2
-    # heads per kv head is 16 rows: flash_decode's)
+    # the transformers and hymba any of the flash routes (this 8-token
+    # prompt of 2 heads per kv head is 16 rows: flash_decode's); whisper
+    # also one per encoder layer and a cross-attention per decoder layer
+    # in the prefill and each step
     names = (("wkv",) if arch == "rwkv6-7b" else
              ("flash_attention", "flash_prefill", "flash_decode"))
+    per_call = 2 if cfg.family == "whisper" else 1
     assert tokens.is_cuda and sum(log["launches"][k] for k in names) \
-        == cfg.n_layers * 4
+        == cfg.n_layers * 4 * per_call + cfg.encoder_layers
     cuda_params = {k: v.cuda() for k, v in params.items()}
-    got = generate(model, cuda_params, prompt.cuda(), 8)
+    got = generate(model, cuda_params, prompt.cuda(), 8,
+                   {k: v.cuda() for k, v in extras.items()})
     assert torch.equal(got.cpu(), want)

@@ -9,9 +9,14 @@ flash-attention kernels (gemma3's local layers with their window in the
 prefill and over their rolling caches in decode; qwen2-vl's prompt is text,
 its M-RoPE ids equal), hymba's windowed attention (the prefill within its
 window, each decode step over its ring; the Mamba scan is plain PyTorch)
-and whisper's encoder, cross-attention and decoder, and every rwkv6
-recurrence through the wkv kernel. gemma3-27b at full width (54.0 GB of
-bf16 weights) fits one 80 GB card.
+and whisper's encoder, cross-attention and decoder, the MoE decoders'
+attention (phi3.5-moe, arctic-480b; their experts are plain PyTorch, as in
+JAX), and every rwkv6 recurrence through the wkv kernel. gemma3-27b at full
+width (54.0 GB of bf16 weights) fits one 80 GB card; the MoE configs at
+full depth do not (phi3.5-moe: 83.7 GB of bf16 weights; arctic-480b: 27.2
+GB a layer), so they serve at full width with fewer layers:
+`--set n_layers=N` overrides a config field, parsed as the JAX dry run's
+`--set` (repeatable; an unknown field raises).
 
 whisper takes the stubbed conv output as its audio: `--frames` frames
 (default the config's n_audio_frames, 1500 = 30 s) of standard-normal
@@ -27,7 +32,10 @@ cast to the compute dtype, the dtype the JAX package's dry run gives them
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
       --smoke --device cpu
-  (likewise --arch internlm2-1.8b, minicpm-2b, qwen2-vl-2b or hymba-1.5b)
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch phi3.5-moe-42b-a6.6b --smoke --device cpu
+  (likewise --arch internlm2-1.8b, minicpm-2b, qwen2-vl-2b, hymba-1.5b or
+  arctic-480b; on the card, e.g. --arch arctic-480b --set n_layers=2)
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ import argparse
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, parse_overrides
 from repro_torch.device import resolve_device
 from repro_torch.kernels import launch_counts
 from repro_torch.models import build_model
@@ -47,7 +55,7 @@ def main(argv=None):
     """Returns (tokens (B, new_tokens) int64 on the run's device, log): the
     log holds the config, the parameter count, prefill seconds, decode
     seconds per token, tokens/s, peak device memory (None on the CPU) and
-    the kernel launches of the run."""
+    the kernel launches of the run, and the config overrides."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--smoke", action="store_true",
@@ -59,12 +67,19 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=None,
                     help="whisper: audio frames (default n_audio_frames)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="config override, as the JAX dry run's --set "
+                         "(e.g. n_layers=2 to cut depth); repeatable")
     args = ap.parse_args(argv)
     if args.new_tokens < 1 or args.prompt_len < 1 or args.batch < 1:
         raise ValueError("--batch, --prompt-len and --new-tokens must be >= 1")
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
+    overrides = parse_overrides(args.set)
+    cfg = get_config(args.arch, smoke=args.smoke).replace(**overrides)
+    if overrides:
+        print(f"config overrides: {overrides}", flush=True)
     model = build_model(cfg)
     params = model.init(args.seed, device)
     gen = torch.Generator().manual_seed(args.seed)
@@ -93,7 +108,7 @@ def main(argv=None):
     total = run["prefill_seconds"] + run["decode_seconds"]
     steps = args.new_tokens - 1
     log = {
-        "arch": cfg.name, "n_layers": cfg.n_layers,
+        "arch": cfg.name, "n_layers": cfg.n_layers, "overrides": overrides,
         "params": model.param_count(params), "batch": args.batch,
         "prompt_len": args.prompt_len, "new_tokens": args.new_tokens,
         "frames": None if extras is None else extras["frames"].shape[1],

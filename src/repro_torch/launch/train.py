@@ -19,8 +19,14 @@ The DP members are `--dp` rows of one tensor on one device (the
 single-process transport), standing in for JAX's forced device count.
 Runs on CUDA unless `--device cpu` is given. qwen3-1.7b, internlm2-1.8b and
 hymba-1.5b (bf16 leaves beside fp32 ones: the healthy sync sums each dtype
-in its own buffer) train at full width on one card; qwen2-vl-2b trains on
-text batches (no patch prefix, as the JAX launcher). whisper-base does not
+in its own buffer) train at full width on one card, and so does
+phi3.5-moe at one layer (`--set n_layers=1`: its fp32 router beside bf16
+experts, 1.56e9 params; at 2 layers the DP-4 train state does not fit);
+qwen2-vl-2b trains on text batches (no patch prefix, as the JAX
+launcher); rwkv6-7b and arctic-480b train at their smoke configs through
+the same launcher (rwkv6's recurrence through JAX's training scan).
+`--set key=value` overrides a config field as the JAX dry run's `--set`
+does (repeatable; an unknown field raises). whisper-base does not
 train here: its loss needs frames and the batches are tokens only, as in
 the JAX launcher. gemma3-27b and minicpm-2b train only at
 their smoke configs (`--smoke`): gemma3's full-width train state (bf16
@@ -35,7 +41,9 @@ minicpm-2b's at DP 4 (2.72e9 params, ~78 GiB by scaling qwen3-1.7b's
       --smoke --steps 6 --fail-at 2 --repair-at 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       --smoke --steps 6 --fail-at 2 --repair-at 4 --device cpu
-  (likewise --arch minicpm-2b, qwen2-vl-2b or hymba-1.5b)
+  (likewise --arch minicpm-2b, qwen2-vl-2b, hymba-1.5b, rwkv6-7b,
+  arctic-480b or phi3.5-moe-42b-a6.6b; on the card --arch
+  phi3.5-moe-42b-a6.6b --set n_layers=1)
 """
 from __future__ import annotations
 
@@ -50,7 +58,7 @@ import torch
 from repro_torch.checkpoint import latest_step, restore, save
 from repro_torch.comms import LocalTransport
 from repro_torch.comms.fault import FailureInjector, FaultState
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, parse_overrides
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels.chunk_reduce import kernel as chunk_reduce_kernel
@@ -117,10 +125,17 @@ def main(argv=None):
     ap.add_argument("--dp", type=int, default=4,
                     help="DP members of the single-process transport")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="config override, as the JAX dry run's --set "
+                         "(e.g. n_layers=2 to cut depth); repeatable")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
+    overrides = parse_overrides(args.set)
+    cfg = get_config(args.arch, smoke=args.smoke).replace(**overrides)
+    if overrides:
+        print(f"config overrides: {overrides}", flush=True)
     model = build_model(cfg)
     dp = args.dp
     transport = LocalTransport(dp)

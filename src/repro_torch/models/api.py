@@ -1,7 +1,7 @@
 """Model API: build_model(cfg) -> Model with init/loss/prefill/decode_step/
-init_cache (the port of `repro/models/api.py` for the dense, vlm, rwkv6,
-hymba and whisper families; dense and vlm share the transformer, as in
-the JAX package).
+init_cache (the port of `repro/models/api.py` for every family: dense,
+vlm and moe share the transformer, as in the JAX package; rwkv6, hymba
+and whisper have their own modules).
 
   loss:        (params, {tokens, labels, [frames], [positions],
                          [prefix_embeds]})
@@ -35,23 +35,13 @@ class Model:
         return sum(x.numel() for x in params.values())
 
 
-def _no_loss(cfg: ModelConfig):
-    def loss(params, batch):
-        raise NotImplementedError(
-            f"{cfg.name}: rwkv6 training is not ported yet (it needs a "
-            "backward of the wkv kernel)")
-    return loss
-
-
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family == "rwkv6":
-        mod, loss = rwkv6, _no_loss(cfg)
-    else:
-        mod = {"hymba": hymba, "whisper": whisper}.get(cfg.family)
-        if mod is None:
-            transformer.check_supported(cfg)
-            mod = transformer
-        loss = lambda p, b: mod.loss_fn(cfg, p, b)   # noqa: E731
+    mod = {"rwkv6": rwkv6, "hymba": hymba,
+           "whisper": whisper}.get(cfg.family)
+    if mod is None:
+        transformer.check_supported(cfg)
+        mod = transformer
+    loss = lambda p, b: mod.loss_fn(cfg, p, b)   # noqa: E731
     if cfg.family == "whisper":
         prefill = lambda p, b: whisper.prefill(   # noqa: E731
             cfg, p, b["tokens"], b["frames"])

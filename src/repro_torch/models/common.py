@@ -144,15 +144,21 @@ def init_dense(shape: tuple, generator: torch.Generator,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Normal init scaled by 1/sqrt(shape[0]) unless `scale` is given - as
     in the JAX package, shape[0] of a stacked (L, in, out) weight is L.
-    Draws on the generator's device in fp32, a stacked (3-D or more) leaf
-    one slice along dim 0 at a time, each slice scaled in place and cast
-    into the preallocated `dtype` result: the only fp32 temporary is one
-    layer's slice (0.46 GB for gemma3-27b's w_gate, whose whole leaf in
-    fp32 would be 28.7 GB)."""
+    Draws on the generator's device in fp32, a stacked 3-D leaf one slice
+    along dim 0 at a time and a 4-D one (L, E, in, out) one (layer,
+    expert) slice at a time, each slice scaled in place and cast into the
+    preallocated `dtype` result: the only fp32 temporary is one slice
+    (0.46 GB for gemma3-27b's w_gate, whose whole leaf in fp32 would be
+    28.7 GB; 0.14 GB for arctic-480b's experts, where one layer's would
+    be 17.9 GB)."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
     out = torch.empty(shape, dtype=dtype, device=generator.device)
-    for piece in (out.unbind(0) if len(shape) >= 3 else (out,)):
+    if len(shape) >= 4:
+        pieces = out.reshape((-1,) + tuple(shape[-2:])).unbind(0)
+    else:
+        pieces = out.unbind(0) if len(shape) == 3 else (out,)
+    for piece in pieces:
         piece.copy_(torch.randn(piece.shape, generator=generator,
                                 dtype=torch.float32,
                                 device=generator.device).mul_(scale))

@@ -1,16 +1,19 @@
-"""RWKV-6 "Finch": attention-free RNN with data-dependent decay, forward
-and serving (the port of `repro/models/rwkv6.py`; training waits for a
-backward of the wkv kernel).
+"""RWKV-6 "Finch": attention-free RNN with data-dependent decay: training
+and serving (the port of `repro/models/rwkv6.py`).
 
 Per layer: time-mix (the wkv recurrence over a per-head (hd x hd) state
 with data-dependent decay w_t, driven by r/k/v/g projections with
 token-shift) and channel-mix (token-shifted squared-ReLU MLP). The serving
 state is O(1) in sequence length: (L, B, H, hd, hd) plus shift states.
 
-Every wkv recurrence - the whole prompt in prefill and forward, one token
-per decode step chained through the layer's state - goes through
-`kernels.wkv.ops.wkv`: the Hopper kernel for CUDA tensors, its plain
-version for CPU tensors. Parameters are one flat dict keyed by the JAX
+Training (`forward`, `loss_fn`) runs the recurrence as JAX trains it (its
+`use_wkv_kernel=False` path): JAX's per-token step inside
+`common.chunked_scan` over `cfg.ssm_chunk`-step chunks, differentiated by
+autograd. (A ragged last chunk leaves a zero final state, ROADMAP §3, but
+the loss reads only the outputs.) Serving's recurrences - the whole prompt
+in prefill, one token per decode step chained through the layer's state -
+go through `kernels.wkv.ops.wkv`: the Hopper kernel for CUDA tensors, its
+plain version for CPU tensors. Parameters are one flat dict keyed by the JAX
 pytree's "/"-joined paths, layer weights stacked as (L, ...); `w_base` and
 `bonus` are fp32 leaves whatever the parameter dtype.
 """
@@ -22,8 +25,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.wkv import wkv
-from repro_torch.models.common import (BLOCKS, embed_tokens, init_dense,
-                                       layer_params, rms_norm, torch_dtype)
+from repro_torch.models.common import (BLOCKS, chunked_scan,
+                                       chunked_softmax_xent, embed_tokens,
+                                       init_dense, layer_params, rms_norm,
+                                       torch_dtype, unbound_layers)
 
 
 def _dims(cfg: ModelConfig) -> tuple[int, int]:
@@ -77,10 +82,32 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
 # time mix and channel mix
 # ----------------------------------------------------------------------------
 
-def _time_mix(cfg, bp, h, h_prev, state0=None):
+def _wkv_scan(cfg, r, k, v, w, u):
+    """JAX's training recurrence over (B, S, H, hd) fp32 inputs from a zero
+    state: its step (kv = k^T v, out = r (S + u kv), S <- w S + kv) in
+    `chunked_scan`. Returns (out (B, S, H, hd), final state)."""
+    B, S, H, hd = r.shape
+
+    def chunk_fn(state, xs):
+        outs = []
+        for r_t, k_t, v_t, w_t in zip(*xs):               # (B, H, hd) each
+            kv = k_t[..., :, None] * v_t[..., None, :]
+            outs.append(torch.einsum("bhk,bhkv->bhv", r_t,
+                                     state + u[..., None] * kv))
+            state = w_t[..., None] * state + kv
+        return state, torch.stack(outs)
+
+    state, outs = chunked_scan(
+        chunk_fn, r.new_zeros((B, H, hd, hd)),
+        [a.transpose(0, 1) for a in (r, k, v, w)], cfg.ssm_chunk)
+    return outs.transpose(0, 1), state
+
+
+def _time_mix(cfg, bp, h, h_prev, state0=None, scan=False):
     """The time-mix branch over (B, S, d): h the normed input, h_prev the
-    token-shifted one (both fp32). Returns (out (B, S, d) fp32, final wkv
-    state (B, H, hd, hd))."""
+    token-shifted one (both fp32); the recurrence through the wkv op, or
+    with `scan` through `_wkv_scan` (no state0). Returns (out (B, S, d)
+    fp32, final wkv state (B, H, hd, hd))."""
     H, hd = _dims(cfg)
     B, S, d = h.shape
     mix = bp["mix_rkvwg"].float()                        # (5, d)
@@ -95,7 +122,10 @@ def _time_mix(cfg, bp, h, h_prev, state0=None):
     w = torch.exp(-torch.exp(bp["w_base"].reshape(1, 1, H, hd)
                              + w_dd.reshape(B, S, H, hd)))
     u = bp["bonus"].float().reshape(H, hd)
-    out, state = wkv(r, k, v, w, u, state0)
+    if scan:
+        out, state = _wkv_scan(cfg, r, k, v, w, u)
+    else:
+        out, state = wkv(r, k, v, w, u, state0)
     out = rms_norm(out.reshape(B, S, H * hd), bp["ln_x"], cfg.norm_eps)
     return (out * g) @ bp["wo"].float(), state
 
@@ -114,13 +144,13 @@ def _shift(h):
     return F.pad(h, (0, 0, 1, 0))[:, :-1]
 
 
-def _layer_parallel(cfg, bp, x):
+def _layer_parallel(cfg, bp, x, scan=False):
     """One rwkv6 layer over (B, S, d), sequence-parallel: every projection
     is one matmul over the whole sequence, token shift is a shifted copy,
-    and the recurrence is one wkv call. Returns (x_out, (tshift, cshift,
-    wkv_state))."""
+    and the recurrence is one wkv call (with `scan`, the training scan).
+    Returns (x_out, (tshift, cshift, wkv_state))."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps).float()
-    out, state = _time_mix(cfg, bp, h, _shift(h))
+    out, state = _time_mix(cfg, bp, h, _shift(h), scan=scan)
     x = x + out.to(x.dtype)
     tshift = h[:, -1].to(x.dtype)
     h2 = rms_norm(x, bp["ln2"], cfg.norm_eps).float()
@@ -131,11 +161,19 @@ def _layer_parallel(cfg, bp, x):
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
             ) -> torch.Tensor:
-    """tokens: (B, S) -> hidden states (B, S, d)."""
+    """tokens: (B, S) -> hidden states (B, S, d), the recurrence through
+    the training scan."""
     x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
-    for layer in range(cfg.n_layers):
-        x, _ = _layer_parallel(cfg, layer_params(params, layer), x)
+    for bp in unbound_layers(params):
+        x, _ = _layer_parallel(cfg, bp, x, scan=True)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """batch: {tokens (B, S), labels (B, S)}: mean token NLL."""
+    h = forward(cfg, params, batch["tokens"])
+    return chunked_softmax_xent(h, params["lm_head"], batch["labels"],
+                                chunk=cfg.logits_chunk)
 
 
 # ----------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""Dense decoder-only transformer: training, prefill and decode (the port of
-`repro/models/transformer.py` for qwen3, internlm2, minicpm, gemma3 and
-qwen2-vl). gemma3's 5:1 local:global attention is a per-layer flag
+"""Decoder-only transformer: training, prefill and decode (the port of
+`repro/models/transformer.py` for qwen3, internlm2, minicpm, gemma3,
+qwen2-vl and the MoE decoders phi3.5-moe and arctic-480b, whose FFN is
+`moe.moe_ffn` in every layer: `ffn_apply` keys on `cfg.n_experts`, as in
+JAX). gemma3's 5:1 local:global attention is a per-layer flag
 (`layer_is_global`): a local layer attends within `cfg.local_window` keys,
 and in serving keeps a rolling cache of `local_window` slots (slot =
 position % window) where a global layer keeps the full sequence. qwen2-vl
@@ -22,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.common import (BLOCKS, apply_mrope, apply_rope,
                                        chunked_softmax_xent, embed_tokens,
                                        init_dense, layer_params, rms_norm,
@@ -31,10 +34,8 @@ from repro_torch.models.common import (BLOCKS, apply_mrope, apply_rope,
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run."""
     missing = []
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         missing.append(f"family {cfg.family!r}")
-    if cfg.n_experts > 0:
-        missing.append("MoE")
     if cfg.encoder_layers:
         missing.append("cross-attention")
     if cfg.remat != "none":
@@ -42,7 +43,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
-            "runs the dense and vlm paths)")
+            "runs the dense, vlm and moe paths)")
 
 
 def layer_is_global(cfg: ModelConfig) -> np.ndarray:
@@ -63,10 +64,12 @@ def _layer_window(cfg: ModelConfig, is_global: bool) -> int:
 # ----------------------------------------------------------------------------
 
 def init_block_params(cfg: ModelConfig, generator: torch.Generator,
-                      n_layers: int, cross_attn: bool = False) -> dict:
+                      n_layers: int, cross_attn: bool = False,
+                      dense_ffn: bool = True) -> dict:
     """The stacked (n_layers, ...) weights of a block; with `cross_attn`
     also its cross-attention's (whisper's decoder: ln_x, xq, xk, xv,
-    xo)."""
+    xo); without `dense_ffn` no w_gate, w_up, w_down (an MoE block, whose
+    FFN leaves `moe.init_moe_params` draws)."""
     hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     d, f = cfg.d_model, cfg.d_ff
     L = n_layers
@@ -80,8 +83,9 @@ def init_block_params(cfg: ModelConfig, generator: torch.Generator,
         return torch.zeros((L,) + shape, dtype=dt, device=dev)
 
     params = {"ln1": Z((d,)), "wq": W((d, H * hd)), "wk": W((d, KV * hd)),
-              "wv": W((d, KV * hd)), "wo": W((H * hd, d)), "ln2": Z((d,)),
-              "w_gate": W((d, f)), "w_up": W((d, f)), "w_down": W((f, d))}
+              "wv": W((d, KV * hd)), "wo": W((H * hd, d)), "ln2": Z((d,))}
+    if dense_ffn:
+        params.update(w_gate=W((d, f)), w_up=W((d, f)), w_down=W((f, d)))
     if cfg.qk_norm:
         params["q_norm"] = Z((hd,))
         params["k_norm"] = Z((hd,))
@@ -96,7 +100,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     JAX init's formulas (not its random numbers)."""
     check_supported(cfg)
     dt = torch_dtype(cfg.param_dtype)
-    blocks = init_block_params(cfg, generator, cfg.n_layers)
+    blocks = init_block_params(cfg, generator, cfg.n_layers,
+                               dense_ffn=cfg.n_experts == 0)
+    if cfg.n_experts > 0:
+        blocks.update(moe.init_moe_params(cfg, generator, cfg.n_layers))
     params = {BLOCKS + k: v for k, v in blocks.items()}
     params["embed"] = init_dense((cfg.vocab_size, cfg.d_model), generator,
                                  scale=0.02, dtype=dt)
@@ -106,6 +113,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
         params["lm_head"] = init_dense((cfg.d_model, cfg.vocab_size),
                                        generator, scale=0.02, dtype=dt)
     return dict(sorted(params.items()))
+
+
+def ffn_apply(cfg: ModelConfig, h: torch.Tensor, bp: dict) -> torch.Tensor:
+    """Dense SwiGLU or MoE FFN, keyed on the config."""
+    if cfg.n_experts > 0:
+        return moe.moe_ffn(cfg, h, bp)
+    return swiglu(h, bp["w_gate"], bp["w_up"], bp["w_down"])
 
 
 def unembed_matrix(cfg: ModelConfig, params: dict) -> torch.Tensor:
@@ -140,11 +154,11 @@ def _positions(cfg: ModelConfig, B: int, S: int, device, start: int = 0):
 
 
 def _block_tail(cfg: ModelConfig, x, bp, out):
-    """The layer after attention: output projection, residual, MLP."""
+    """The layer after attention: output projection, residual, FFN."""
     B, S, _ = x.shape
     x = x + out.reshape(B, S, -1) @ bp["wo"]
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + swiglu(h, bp["w_gate"], bp["w_up"], bp["w_down"])
+    return x + ffn_apply(cfg, h, bp)
 
 
 def dense_block(cfg: ModelConfig, x, bp, positions, is_global: bool = True,

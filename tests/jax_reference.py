@@ -9,10 +9,13 @@ the tests run this file in a subprocess:
     python tests/jax_reference.py elastic DIR
 
 The first two write their inputs and the JAX results to OUT.npz
-(`train_step` on ARCH's smoke config, qwen3-1.7b by default; any dense or
-vlm arch of the port, or hymba-1.5b: the tests run gemma3-27b,
-internlm2-1.8b and hymba-1.5b, and a qwen2-vl-2b batch carries text only,
-no patch prefix, as the JAX launcher's does). `elastic`
+(`train_step`: the initial parameters, each run's losses, grad norms and
+final parameters, and its parameters after the first step)
+(`train_step` on ARCH's smoke config, qwen3-1.7b by default; any dense,
+vlm or MoE arch of the port, hymba-1.5b or rwkv6-7b: the tests run
+gemma3-27b, internlm2-1.8b, hymba-1.5b, phi3.5-moe-42b-a6.6b, arctic-480b
+and rwkv6-7b, and a qwen2-vl-2b batch carries text only, no patch prefix,
+as the JAX launcher's does). `elastic`
 saves JAX's initial train state as DIR/ckpt/step_0, runs the JAX launcher
 from it with a node loss (ELASTIC_ARGV) and writes the launcher's printed
 lines and final parameters to DIR/elastic.npz. Importing this module (as
@@ -130,6 +133,8 @@ def train_step(out_path: str, arch: str = TRAIN_ARCH) -> None:
             state, m = step(state, batch)
             losses.append(float(m["loss"]))
             gnorms.append(float(m["grad_norm"]))
+            if i == 0:
+                res.update(flat_numpy(state.params, f"{name}/step1/params/"))
         res[f"{name}/loss"] = np.asarray(losses)
         res[f"{name}/grad_norm"] = np.asarray(gnorms)
         res.update(flat_numpy(state.params, f"{name}/params/"))
@@ -167,7 +172,9 @@ if __name__ == "__main__":
     ap.add_argument("out")
     ap.add_argument("--arch", default=TRAIN_ARCH,
                     choices=["qwen3-1.7b", "gemma3-27b", "internlm2-1.8b",
-                             "minicpm-2b", "qwen2-vl-2b", "hymba-1.5b"],
+                             "minicpm-2b", "qwen2-vl-2b", "hymba-1.5b",
+                             "phi3.5-moe-42b-a6.6b", "arctic-480b",
+                             "rwkv6-7b"],
                     help="train_step's config (its smoke variant)")
     args = ap.parse_args()
     if args.what == "train_step":

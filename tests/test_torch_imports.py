@@ -32,6 +32,7 @@ for mod in ("kernels.chunk_reduce.kernel", "kernels.flash_attention.kernel",
             "configs.internlm2_1p8b", "configs.minicpm_2b",
             "configs.qwen2_vl_2b", "configs.hymba_1p5b",
             "configs.whisper_base", "models.hymba", "models.whisper",
+            "configs.phi35_moe", "configs.arctic_480b", "models.moe",
             "checkpoint.ckpt",
             "checkpoint._msgpack"):
     assert "repro_torch." + mod in names, mod

@@ -43,9 +43,10 @@ def jax_run(tmp_path_factory):
     return dict(np.load(out))
 
 
-def port_run(res, fault, arch=drv.TRAIN_ARCH):
+def port_run(res, fault, arch=drv.TRAIN_ARCH, steps=drv.TRAIN_STEPS):
     """The port's DP step from the JAX run's initial parameters, on the
-    same batches: (losses, grad norms, final params as numpy)."""
+    same batches, `steps` of them: (losses, grad norms, final params as
+    numpy)."""
     model = build_model(get_config(arch, smoke=True))
     opt = AdamWConfig(weight_decay=0.01)
     params = params_from_numpy(
@@ -56,13 +57,13 @@ def port_run(res, fault, arch=drv.TRAIN_ARCH):
                                  constant(drv.TRAIN_LR), fault)
     data = drv.train_data(arch)
     losses, gnorms = [], []
-    for i in range(drv.TRAIN_STEPS):
+    for i in range(steps):
         batch = {k: torch.from_numpy(v).long()
                  for k, v in data.batch(i).items()}
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
-    assert state.step == drv.TRAIN_STEPS
+    assert state.step == steps
     return np.asarray(losses), np.asarray(gnorms), \
         {k: v.detach().numpy() for k, v in state.params.items()}
 

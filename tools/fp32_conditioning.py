@@ -8,6 +8,8 @@ tests and of chip_smoke.py.
         --chip-batch                             # chip_smoke's loss run
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/fp32_conditioning.py \
         --arch hymba-1.5b --dp OUT.npz           # three DP steps' grad norms
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/fp32_conditioning.py \
+        --arch arctic-480b --dp OUT.npz --perturb   # the run from a nudged init
 
 Runs the port's loss and gradients on the CPU twice, in fp32 and in
 float64 (the config's dtypes float64, and every `.float()` cast in the
@@ -23,8 +25,11 @@ chip_smoke.py's `_loss_run`, the port's init at seed 8 and numpy seed 8,
 labels equal to the tokens. --dp OUT.npz: the port's DP step (4 members,
 healthy) from the initial parameters of a `tests/jax_reference.py
 train_step OUT.npz --arch ARCH` run, three steps in fp32 and in float64
-(chunk_reduce's plain version summing in float64 too), and the grad norms
-of both and of JAX's run. CPU only.
+(chunk_reduce's plain version summing in float64 too), the grad norms of
+both and of JAX's run, and each leaf's final parameters of the port's and
+JAX's fp32 runs against float64; with --perturb instead, the port's fp32
+run against itself from an init nudged by about one fp32 rounding
+(x (1 + 1e-7 N(0,1))), and JAX's against it. CPU only.
 """
 from __future__ import annotations
 
@@ -151,7 +156,7 @@ def dp_steps(arch: str, npz: str) -> None:
     from repro_torch.comms.fault import FaultState
     import test_torch_train_step
     res = dict(np.load(npz))
-    norms = {"fp32": port_run(res, FaultState(drv.P), arch)[1]}
+    _, norms32, params32 = port_run(res, FaultState(drv.P), arch)
     res64 = {k: v.astype(np.float64) if k.startswith("init/") else v
              for k, v in res.items()}
     orig = test_torch_train_step.get_config
@@ -159,16 +164,58 @@ def dp_steps(arch: str, npz: str) -> None:
         a, torch.float64)
     try:
         with float64_casts():
-            norms["float64"] = port_run(res64, FaultState(drv.P), arch)[1]
+            _, ref, params64 = port_run(res64, FaultState(drv.P), arch)
     finally:
         test_torch_train_step.get_config = orig
-    ref = norms["float64"]
     print(f"{arch} DP step, healthy: grad norm per step")
     print("float64 ", ref)
-    for name, got in (("port fp32", norms["fp32"]),
+    for name, got in (("port fp32", norms32),
                       ("JAX fp32", res["healthy/grad_norm"])):
         print(f"{name:9s}", np.asarray(got), "rel to float64",
               np.asarray(got) / ref - 1)
+    print("final parameters against float64, per leaf, worst port first: "
+          "max |p - p64| and the share of elements past 1e-4")
+    print(f"{'port max':>10} {'share':>9} {'JAX max':>10} {'share':>9}  leaf")
+    rows = []
+    for k, want in params64.items():
+        gaps = [np.abs(np.asarray(p, np.float64) - want) for p in
+                (params32[k], res[f"healthy/params/{k}"])]
+        rows.append(tuple(x for g in gaps for x in (g.max(),
+                                                     (g > 1e-4).mean()))
+                    + (k,))
+    for row in sorted(rows, key=lambda r: -r[1]):
+        print("{:10.2e} {:9.2e} {:10.2e} {:9.2e}  {}".format(*row))
+
+
+def perturbed(arch: str, npz: str) -> None:
+    """The port's fp32 DP run (healthy, three steps) against itself from
+    initial parameters times (1 + 1e-7 N(0, 1)), about one fp32 rounding:
+    how far fp32 rounding alone can carry the run."""
+    import sys
+    sys.path.insert(0, "tests")
+    import jax_reference as drv
+    from test_torch_train_step import port_run
+
+    from repro_torch.comms.fault import FaultState
+    res = dict(np.load(npz))
+    rng = np.random.default_rng(0)
+    nudged = {k: (v * (1 + 1e-7 * rng.standard_normal(v.shape)))
+              .astype(v.dtype) if k.startswith("init/") else v
+              for k, v in res.items()}
+    runs = [port_run(r, FaultState(drv.P), arch) for r in (res, nudged)]
+    (l0, g0, p0), (l1, g1, p1) = runs
+    print(f"{arch} DP step, healthy: fp32 run from init x (1 + 1e-7 "
+          "N(0,1)) against the same run from init")
+    print("loss rel per step     ", l1 / l0 - 1)
+    print("grad norm rel per step", g1 / g0 - 1)
+    for name, params in (("nudged port", p1), ("JAX", None)):
+        gaps = {k: np.abs((params[k] if params else
+                           res[f"healthy/params/{k}"]) - v)
+                for k, v in p0.items()}
+        k = max(gaps, key=lambda k: (gaps[k] > 1e-4).mean())
+        print(f"final params, {name} vs port: max "
+              f"{max(g.max() for g in gaps.values()):.3e}, worst share "
+              f"past 1e-4 {(gaps[k] > 1e-4).mean():.3e} ({k})")
 
 
 def main(argv=None):
@@ -177,8 +224,13 @@ def main(argv=None):
     ap.add_argument("--chip-batch", action="store_true")
     ap.add_argument("--jax", action="store_true")
     ap.add_argument("--dp", default=None, metavar="OUT.npz")
+    ap.add_argument("--perturb", action="store_true",
+                    help="with --dp: the fp32 run against itself from a "
+                         "nudged init")
     args = ap.parse_args(argv)
-    if args.dp:
+    if args.dp and args.perturb:
+        perturbed(args.arch, args.dp)
+    elif args.dp:
         dp_steps(args.arch, args.dp)
     else:
         gradients(args.arch, args.chip_batch, args.jax)

@@ -58,6 +58,24 @@ phases, each printing one JSON line:
                  to 2, restores and runs steps 4-5 (chunk_reduce at W = 2);
                  step 4's loss equals the main path's, and steps 4-5 equal
                  to the bit a 2-member run resumed from step_4;
+  dist_collectives - the process transport: four processes on the card
+                 over gloo, hops staged through pinned host memory. psum
+                 (bf16) and optcc_allreduce_tree (fp32, straggler 1) at the
+                 main path's gradient length, each held on every rank to
+                 the sum recomputed from per-rank seeds (psum to the bit),
+                 the straggler's link at 2 x the padded length; then every
+                 collective (psum, ring, OptCC flat and tree at stragglers
+                 0 / 1 / 3, psum_tree, hierarchical 2 x 2, compressed with
+                 its residual) at 2^24 + 1 elements on both transports,
+                 bit-equal (digests of the bits taken on the card); per
+                 collective the wall seconds, each hop's staging, gloo-wait
+                 and combine (chunk_reduce, CUDA events) times, bytes per
+                 link and launches;
+  main_path_dist - `launch.train --transport gloo` on qwen3-1.7b at full
+                 width and 8 of 28 layers, 4 ranks on the card, healthy ->
+                 degraded -> repaired, and the same run over the
+                 single-process transport: the final parameters' hashes
+                 (taken on the card) equal;
   serve_qwen3  - `repro_torch.launch.serve.main` on qwen3-1.7b at full width
                  and depth (batch 8, prompt 2048, 64 new tokens);
   serve_rwkv6  - the same on rwkv6-7b (batch 4, prompt 1024, 32 new tokens);
@@ -117,9 +135,9 @@ phases, each printing one JSON line:
                  wkv's decode step also with its inputs cold in L2,
                  rotating over 16 sets of inputs and states.
 
-Each path (training, its resumed and rescaled runs, internlm2's, hymba's
-and phi3.5-moe's training, the ten serve runs, the smoke configs' card
-run) is
+Each path (training, its resumed and rescaled runs, the process
+transport's collectives and training, internlm2's, hymba's and
+phi3.5-moe's training, the ten serve runs, the smoke configs' card run) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after. Then it prints the whole run's seconds, the card's name and
 power limit (nvidia-smi), a `kernels` JSON line, and, as the last line,
@@ -244,6 +262,15 @@ HYMBA_ARGV = ["--arch", "hymba-1.5b"] + INTERNLM2_ARGV[2:]
 # its 65,536 fp32 router): at two layers the DP-4 train state does not fit
 PHI35MOE_ARGV = ["--arch", "phi3.5-moe-42b-a6.6b", "--set",
                  "n_layers=1"] + INTERNLM2_ARGV[2:]
+# the process transport (one gloo process per member on the one card):
+# phase_dist_collectives runs every collective on both transports at
+# DIST_N, and psum / the OptCC tree at the main path's gradient length;
+# phase_main_path_dist trains qwen3-1.7b at full width, DIST_LAYERS of its
+# 28 layers (four train states on one card), over both transports
+DIST_P, DIST_N, DIST_SEED = 4, 2 ** 24 + 1, 5
+DIST_LAYERS = 8
+DIST_ARGV = ["--arch", "qwen3-1.7b", "--set", f"n_layers={DIST_LAYERS}"] + \
+    INTERNLM2_ARGV[2:]
 # the DP step's card-vs-CPU limits (phase_reference): loss rel, params abs.
 # AdamW divides by sqrt(nu) per element, so a float-order difference in a
 # near-zero gradient grows into an update difference of up to lr.
@@ -308,6 +335,8 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     del main_run
+    _add(launches, phase_dist_collectives(torch, dev, n_grad))
+    _add(launches, phase_main_path_dist(torch, dev))
     n_internlm2, internlm2_launches = phase_main_path_arch(
         torch, dev, INTERNLM2_ARGV)
     _add(launches, internlm2_launches)
@@ -905,6 +934,167 @@ def phase_collectives(torch, dev) -> None:
                     f"not 2 x {npad}")
     emit({"phase": "collectives", "p": p, "max_abs_err": out,
           "straggler_link": "2 x padded length"})
+
+
+def _hop_lines(hops: list) -> list:
+    """A rank's hops as [kind, staging s, gloo-wait s, combine ms, bytes
+    out, bytes in]."""
+    return [[h["kind"], h["stage_s"], h["wait_s"], h["combine_ms"],
+             h["bytes_out"], h["bytes_in"]] for h in hops]
+
+
+def _links(ranks: list, key: str = "bytes") -> list:
+    """The link counts of a run over ranks: each link as its sender
+    counted it (its receiver counts the same)."""
+    p = len(ranks)
+    return [[int(ranks[s][key][s, d]) for d in range(p)] for s in range(p)]
+
+
+def phase_dist_collectives(torch, dev, n_grad: int) -> dict:
+    """The process transport on the card (four ranks on cuda:0, gloo, hops
+    staged through pinned host buffers); returns the ranks' chunk_reduce
+    launches. First psum (bf16) and optcc_allreduce_tree (fp32, straggler
+    1) at n_grad elements, each result held on every rank against the sum
+    recomputed from the ranks' seeds, segment by segment: psum to the bit,
+    the tree within COLLECTIVE_TOL; the straggler's link carries the padded
+    vector out and back once. Then every collective at DIST_N on both
+    transports, equal to the bit (digests of the bits, taken on the
+    card)."""
+    from repro_torch.comms import LocalTransport, dist, parity
+    p = DIST_P
+    torch.cuda.empty_cache()
+    launches = {}
+    t = time.perf_counter()
+    ranks = dist.spawn(parity.full_length, p,
+                       (p, n_grad, DIST_SEED, str(dev), 32 << 20, 1))
+    seconds = time.perf_counter() - t
+    npad = n_grad + (-n_grad) % (p - 1)
+    line = {"phase": "dist_collectives", "p": p, "n": n_grad,
+            "spawn_seconds": seconds,
+            "peak_gib": [r.get("peak_gib") for r in ranks]}
+    for name in ("psum", "tree"):
+        per = [r[name] for r in ranks]
+        for r in per:
+            _add(launches, r["launches"])
+        line[name] = {
+            "seconds": [r["seconds"] for r in per],
+            "max_abs_err": max(r["max_abs_err"] for r in per),
+            "bytes_per_link": _links(per),
+            "launches": [r["launches"] for r in per],
+            "hops": [_hop_lines(r["hops"]) for r in per]}
+    tree = ranks[1]["tree"]["elems"]
+    require(tree[1].sum() == npad and tree[:, 1].sum() == npad,
+            f"straggler 1 sent {tree[1].sum()} and received "
+            f"{tree[:, 1].sum()} elements, not {npad} each")
+    require(line["psum"]["max_abs_err"] == 0.0, "psum not bit-equal")
+    line["straggler_link"] = "2 x padded length"
+    emit(line)
+    del ranks, line
+
+    local = parity.run_suite(LocalTransport(p),
+                             parity.inputs(p, DIST_N, DIST_SEED), dev,
+                             digest=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = dist.spawn(parity.rank_suite, p,
+                       (p, DIST_N, DIST_SEED, str(dev), 32 << 20, True))
+    seconds = time.perf_counter() - t
+    per_collective = {}
+    for name, want in local.items():
+        got = [r[name] for r in ranks]
+        for rank in range(p):
+            require(got[rank]["out"][0] == want["out"][rank],
+                    f"{name}: rank {rank} differs from the single-process "
+                    "transport")
+            for key in ("elems", "bytes"):
+                mine = got[rank][key]
+                require(all(mine[s, d] == (want[key][s, d] if rank in (s, d)
+                                           else 0)
+                            for s in range(p) for d in range(p)),
+                        f"{name}: rank {rank}'s link {key} differ")
+        for r in got:
+            _add(launches, r["launches"])
+        per_collective[name] = {
+            "seconds": max(r["seconds"] for r in got),
+            "local_seconds": want["seconds"],
+            "bytes_per_link": _links(got),
+            "launches": _summed(r["launches"] for r in got),
+            "stage_s": max(sum(h["stage_s"] for h in r["hops"])
+                           for r in got),
+            "wait_s": max(sum(h["wait_s"] for h in r["hops"]) for r in got),
+            "combine_ms": max(sum(h["combine_ms"] for h in r["hops"])
+                              for r in got),
+            "hops": max(len(r["hops"]) for r in got)}
+    npad = DIST_N + (-DIST_N) % (p - 1)
+    for s in (0, 1, 3):
+        for kind in ("optcc", "tree"):
+            elems = ranks[s][f"{kind}_{s}"]["elems"]
+            require(elems[s].sum() == npad and elems[:, s].sum() == npad,
+                    f"{kind} straggler {s}: link not 2 x {npad}")
+    emit({"phase": "dist_collectives_parity", "p": p, "n": DIST_N,
+          "spawn_seconds": seconds, "bit_equal": True,
+          "straggler_link": "2 x padded length",
+          "collectives": per_collective})
+    return launches
+
+
+def _summed(counts) -> dict:
+    total = {}
+    for c in counts:
+        _add(total, c)
+    return total
+
+
+def phase_main_path_dist(torch, dev) -> dict:
+    """`launch.train --transport gloo` (four ranks on the card) and the same
+    run over the single-process transport: qwen3-1.7b at full width and
+    DIST_LAYERS layers, healthy -> degraded -> repaired over 4 steps. The
+    syncs read psum, optcc, optcc, psum in both; the final parameters'
+    hashes, taken on the card, are equal. Returns the ranks' chunk_reduce
+    launches."""
+    from repro_torch.launch.train import main as train_main
+    torch.cuda.empty_cache()
+    argv = DIST_ARGV + ["--transport", "gloo"]
+    t = time.perf_counter()
+    state, log = train_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    gloo_hashes = _card_hashes(torch, state.params)
+    n_params = sum(v.numel() for v in state.params.values())
+    del state
+    torch.cuda.empty_cache()
+    local_state, local_log, local_launches, local_seconds = _run_train(
+        torch, DIST_ARGV, [])
+    local_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    local_hashes = _card_hashes(torch, local_state.params)
+    del local_state
+    torch.cuda.empty_cache()
+    for run in (log, local_log):
+        require([r["sync"] for r in run] == ["psum", "optcc", "optcc",
+                                             "psum"],
+                f"syncs {[r['sync'] for r in run]}")
+        for r in run:
+            require(math.isfinite(r["loss"]), f"loss {r['loss']}")
+    require([r["loss"] for r in log] == [r["loss"] for r in local_log],
+            "the gloo run's losses differ from the local run's")
+    require(gloo_hashes == local_hashes, "the gloo run's final parameters "
+            "differ from the local run's")
+    launches = _summed(r["launches"] for r in log)
+    require(launches.get("chunk_reduce", 0) > 0
+            and launches.get("chunk_reduce_pairs", 0) > 0,
+            f"the ranks launched {launches}")
+    keys = ("step", "loss", "sync", "step_seconds", "grad_seconds",
+            "sync_seconds", "update_seconds", "launches")
+    emit({"phase": "main_path_dist", "argv": argv, "params": n_params,
+          "seconds": seconds, "launches": launches,
+          "peak_gib_per_rank": log[0]["peak_gib"],
+          "params_bit_equal_to_local": True,
+          "steps": [{k: r[k] for k in keys} for r in log],
+          "local": {"seconds": local_seconds, "launches": local_launches,
+                    "peak_gib": local_peak,
+                    "steps": [{k: r[k] for k in keys} for r in local_log]},
+          "host": _host_memory()})
+    return launches
 
 
 def _close(torch, got, x) -> float:
@@ -1917,7 +2107,9 @@ def phase_timing(torch, dev, n_grad: int, internlm2: dict, hymba: dict,
     buffer and its fp32 one; the degraded sync's one fp32 buffer of
     both) and at one-layer phi3.5-moe's (its bf16 experts' and fp32
     router's buffers, and the pair form at their sum). `internlm2`,
-    `hymba` and `phi35moe` are their gradient element counts by dtype."""
+    `hymba` and `phi35moe` are their gradient element counts by dtype.
+    The process transport's combines at qwen3's length: the W-way form on
+    a rank's (4, n/4) psum stack, the pair form on a staged row."""
     out = {}
     gen = torch.Generator(device=dev).manual_seed(2)
     n_internlm2, n_hymba = sum(internlm2.values()), sum(hymba.values())
@@ -1938,6 +2130,12 @@ def phase_timing(torch, dev, n_grad: int, internlm2: dict, hymba: dict,
             torch, gen, dev, 4, n, errs, getattr(torch, dtype))
     out["chunk_reduce_pairs_phi35moe"] = _pairs_timing(
         torch, gen, dev, sum(phi35moe.values()), errs)
+    # the process transport's combines: a rank's W-way psum of its (4, n/4)
+    # stack, and the pair form adding its staging row
+    out["chunk_reduce_dist"] = _wway_timing(torch, gen, dev, 4,
+                                            -(-n_grad // 4), errs)
+    out["chunk_reduce_pairs_staged"] = _staged_pair_timing(torch, gen, dev,
+                                                           n_grad, errs)
     emit({"phase": "timing", **out,
           "device_ms_from_events": list(DEVICE_MS_FROM_EVENTS)})
     return {k: {f: v[f] for f in LINE_FIELDS} for k, v in out.items()}
@@ -1969,14 +2167,16 @@ def _wway_timing(torch, gen, dev, W: int, n: int, errs,
 
 def _pairs_timing(torch, gen, dev, n_grad: int, errs) -> dict:
     """One degraded reduce-scatter hop of an n_grad-element gradient: three
-    fp32 chunk pairs of the vector padded as `optcc_allreduce_tree` pads
-    it, to a multiple of 4 (p - 1) = 12 (p=4, straggler 1), against its
-    plain version to the bit, timed."""
+    fp32 chunk pairs in `optcc_allreduce_tree`'s layout (p=4, straggler 1):
+    JAX's chunks of c (the vector padded to a multiple of p - 1), each in
+    a row of whole 16-byte vectors; against its plain version to the bit,
+    timed."""
+    from repro_torch.comms.transport import row_width
     from repro_torch.kernels.chunk_reduce import ops, ref
     p, ph = 4, 3
-    npad = n_grad + (-n_grad) % (4 * ph)
-    c = npad // ph
-    buf = torch.randn((p * ph, c), generator=gen, device=dev)
+    c = (n_grad + (-n_grad) % ph) // ph
+    w = row_width(c, torch.float32)
+    buf = torch.randn((p * ph, w), generator=gen, device=dev)
     ring = [0, 2, 3]          # healthy members with straggler 1
     dst = [ring[(i + 1) % ph] * ph + i for i in range(ph)]
     src = [ring[i] * ph + i for i in range(ph)]
@@ -2001,10 +2201,45 @@ def _pairs_timing(torch, gen, dev, n_grad: int, errs) -> dict:
             "chunk_reduce_pairs"),
         "plain_ms": _cuda_ms(
             torch, lambda: ref.chunk_reduce_pairs_ref_(buf, dst, src), 5),
-        **_bound(3 * ph * c * buf.element_size(), ph * c),
+        **_bound(3 * ph * w * buf.element_size(), ph * w),
         "library_ms": _cuda_ms(torch, library, 10),
-        "shape": [p * ph, c], "pairs": ph, "dtype": "float32",
-        "bit_equal": True, "chunk_mod_4": c % 4}
+        "shape": [p * ph, w], "pairs": ph, "dtype": "float32",
+        "bit_equal": True, "chunk": c, "chunk_mod_4": c % 4}
+    del buf
+    torch.cuda.empty_cache()
+    return res
+
+
+def _staged_pair_timing(torch, gen, dev, n_grad: int, errs) -> dict:
+    """The process transport's combine of one received OptCC chunk: one
+    pair, the staging row (the buffer's last) into one of a rank's three
+    chunk rows of an n_grad-element fp32 gradient (p=4), against its plain
+    version to the bit, timed; `add_` of the two rows is the library
+    call."""
+    from repro_torch.comms.transport import row_width
+    from repro_torch.kernels.chunk_reduce import ops, ref
+    ph = 3
+    c = (n_grad + (-n_grad) % ph) // ph
+    w = row_width(c, torch.float32)
+    buf = torch.randn((ph + 1, w), generator=gen, device=dev)
+    want = buf[1] + buf[ph]
+    ops.chunk_reduce_pairs_(buf, [1], [ph])
+    errs["chunk_reduce_pairs"] = max(errs["chunk_reduce_pairs"], _compare(
+        torch, buf[1], want, f"staged pair at N={n_grad}"))
+    require(torch.equal(buf[1], want), "staged pair not bit-equal")
+    del want
+    res = {
+        "ms": _cuda_ms(torch, lambda: ops.chunk_reduce_pairs_(buf, [1], [ph]),
+                       10),
+        "device_ms": _device_ms(
+            torch, lambda: ops.chunk_reduce_pairs_(buf, [1], [ph]), 5,
+            "chunk_reduce_pairs"),
+        "plain_ms": _cuda_ms(
+            torch, lambda: ref.chunk_reduce_pairs_ref_(buf, [1], [ph]), 5),
+        **_bound(3 * w * buf.element_size(), w),
+        "library_ms": _cuda_ms(torch, lambda: buf[1].add_(buf[ph]), 10),
+        "shape": [ph + 1, w], "pairs": 1, "dtype": "float32",
+        "bit_equal": True}
     del buf
     torch.cuda.empty_cache()
     return res

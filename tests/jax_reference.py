@@ -9,7 +9,9 @@ the tests run this file in a subprocess:
     python tests/jax_reference.py elastic DIR
 
 The first two write their inputs and the JAX results to OUT.npz
-(`train_step`: the initial parameters, each run's losses, grad norms and
+(`collectives`: ring, OptCC flat and tree, hierarchical_psum on a 2 x 2
+('outer', 'inner') mesh and compressed_psum on seeded normal and dyadic
+inputs; `train_step`: the initial parameters, each run's losses, grad norms and
 final parameters, and its parameters after the first step)
 (`train_step` on ARCH's smoke config, qwen3-1.7b by default; any dense,
 vlm or MoE arch of the port, hymba-1.5b or rwkv6-7b: the tests run
@@ -32,6 +34,10 @@ P = 4                       # DP members
 COLLECTIVE_N = 1001         # optcc length (not a multiple of p-1)
 RING_N = 1000               # ring length (a multiple of p)
 STRAGGLERS = (0, 1, 3)
+# optcc_allreduce_tree lengths: both leave chunks that are not whole
+# 16-byte fp32 vectors (334 and 1367 elements at p = 4)
+TREE_NS = (1001, 4099)
+INNER = 2                   # hierarchical_psum's ('outer', 'inner') = 2 x 2
 TRAIN_STEPS = 3
 TRAIN_LR = 1e-3
 DEGRADED = (1, 1.5)         # straggler, ell
@@ -57,6 +63,34 @@ def collective_input() -> np.ndarray:
         (P, COLLECTIVE_N)).astype(np.float32)
 
 
+def tree_leaves(row, n: int):
+    """A member's leaves for the tree cases, cut from its (n,) row: (20,
+    30) and (n - 604,) fp32, and the last 4 elements as bf16 (jnp or torch,
+    whichever module `row` comes from)."""
+    bf16 = getattr(type(row), "__module__", "").startswith("torch")
+    tail = row[n - 4:n]
+    if bf16:
+        import torch
+        tail = tail.to(torch.bfloat16)
+    else:
+        import jax.numpy as jnp
+        tail = tail.astype(jnp.bfloat16)
+    return [row[:600].reshape(20, 30), row[600:n - 4], tail]
+
+
+def dyadic_input(seed: int = 12) -> np.ndarray:
+    """(P, COLLECTIVE_N) multiples of 1/8 below 16 in magnitude: every sum
+    of them is exact in fp32, whatever the order of addition."""
+    return (np.random.default_rng(seed).integers(
+        -128, 128, (P, COLLECTIVE_N)) / 8).astype(np.float32)
+
+
+def error_input(seed: int = 13) -> np.ndarray:
+    """An error-feedback input for compressed_psum (normal, 1e-2 scale)."""
+    return (1e-2 * np.random.default_rng(seed).standard_normal(
+        (P, COLLECTIVE_N))).astype(np.float32)
+
+
 def _mesh():
     import jax
     from jax.sharding import Mesh
@@ -66,11 +100,14 @@ def _mesh():
 
 def collectives(out_path: str) -> None:
     import jax
+    import jax.numpy as jnp
     from jax import shard_map
+    from jax.sharding import Mesh
     from jax.sharding import PartitionSpec as Ps
 
-    from repro.comms import (optcc_allreduce, ring_allreduce,
-                             ring_reduce_scatter)
+    from repro.comms import (compressed_psum, hierarchical_psum,
+                             optcc_allreduce, optcc_allreduce_tree,
+                             ring_allreduce, ring_reduce_scatter)
     mesh = _mesh()
     x = collective_input()
 
@@ -87,6 +124,42 @@ def collectives(out_path: str) -> None:
     for s in STRAGGLERS:
         res[f"optcc_{s}"] = run(
             lambda xs, s=s: optcc_allreduce(xs[0], "dp", s, P)[None], x)
+    tree_x = np.random.default_rng(14).standard_normal(
+        (P, max(TREE_NS))).astype(np.float32)
+    res["tree_x"] = tree_x
+    for n in TREE_NS:
+        for s in STRAGGLERS:
+            def tree(xs, n=n, s=s):
+                leaves = optcc_allreduce_tree(tree_leaves(xs[0], n), "dp",
+                                              s, P)
+                return tuple(leaf.astype(jnp.float32)[None]
+                             for leaf in leaves)
+            outs = jax.jit(shard_map(
+                tree, mesh=mesh, in_specs=Ps("dp"),
+                out_specs=(Ps("dp"),) * 3))(tree_x[:, :n])
+            for i, leaf in enumerate(outs):
+                res[f"tree_{n}_{s}_{i}"] = np.asarray(leaf)
+    mesh2 = Mesh(np.array(jax.devices()).reshape(P // INNER, INNER),
+                 ("outer", "inner"))
+    for outer in (True, False):
+        res[f"hier_{outer}"] = np.asarray(jax.jit(shard_map(
+            lambda xs, outer=outer: hierarchical_psum(
+                xs[0], "inner", "outer" if outer else None)[None],
+            mesh=mesh2, in_specs=Ps(("outer", "inner")),
+            out_specs=Ps(("outer", "inner"))))(x))
+    for name, (data, err) in {"normal": (x, error_input()),
+                              "dyadic": (dyadic_input(), None)}.items():
+        def comp(xs, es=None):
+            out, new_err = compressed_psum(
+                xs[0], "dp", None if es is None else es[0])
+            return out[None], new_err[None]
+        specs = (Ps("dp"),) if err is None else (Ps("dp"), Ps("dp"))
+        out, new_err = jax.jit(shard_map(
+            comp, mesh=mesh, in_specs=specs,
+            out_specs=(Ps("dp"), Ps("dp"))))(
+                *((data,) if err is None else (data, err)))
+        res[f"compressed_{name}"] = np.asarray(out)
+        res[f"compressed_{name}_error"] = np.asarray(new_err)
     np.savez(out_path, **res)
 
 

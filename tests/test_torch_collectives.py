@@ -1,7 +1,8 @@
 """The port's collectives over the single-process transport: AllReduce
-semantics, chunk ownership, the straggler's link volume, and the JAX
-collectives themselves (4 forced host devices, one subprocess) on the same
-input."""
+semantics, chunk ownership, the straggler's link volume, the tree's chunk
+rows, and the JAX collectives themselves (4 forced host devices, one
+subprocess) on the same input: ring and OptCC, the OptCC tree,
+hierarchical_psum and compressed_psum."""
 import os
 import pathlib
 import subprocess
@@ -13,9 +14,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax_reference as drv  # noqa: E402
-from repro_torch.comms import (LocalTransport, optcc_allreduce,  # noqa: E402
-                               optcc_allreduce_tree, psum, psum_tree,
-                               ring_all_gather, ring_allreduce,
+from repro_torch.comms import (LocalTransport,  # noqa: E402
+                               compressed_psum, hierarchical_psum,
+                               optcc_allreduce, optcc_allreduce_tree, psum,
+                               psum_tree, ring_all_gather, ring_allreduce,
                                ring_reduce_scatter)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -95,19 +97,43 @@ def test_tree_forms_sum_each_leaf():
         optcc_allreduce_tree(iter(members[:3]), 0, tr)
 
 
+class _SpyTransport(LocalTransport):
+    """A LocalTransport that records every buffer it adds rows of."""
+
+    def __init__(self, p):
+        super().__init__(p)
+        self.buffers = []
+
+    def accumulate(self, buf, moves, length=None):
+        self.buffers.append((tuple(buf.shape), buf.stride(), buf.data_ptr(),
+                             buf.element_size(), length))
+        super().accumulate(buf, moves, length)
+
+
 @pytest.mark.parametrize("n", [611, 1001, 1889110016 % 10007])
 def test_tree_chunks_are_whole_16_byte_vectors(n):
-    """The tree's buffer is padded to a multiple of 4 (p - 1): every chunk
-    the pair form adds is a whole number of 16-byte fp32 vectors, and the
-    straggler's link carries the padded vector out and back once."""
+    """The tree keeps JAX's chunks - the vector padded to a multiple of
+    p - 1, cut into p - 1 chunks of c - and gives each chunk its own row of
+    whole 16-byte vectors: every row the pair form adds starts 16-byte
+    aligned, and the straggler's link carries JAX's padded vector out and
+    back once."""
     p = 4
     x = _x(p, n)
-    tr = LocalTransport(p)
+    tr = _SpyTransport(p)
     got = optcc_allreduce_tree(iter([[x[i]] for i in range(p)]), 1, tr)
     np.testing.assert_allclose(got[0].numpy(), x.sum(0).numpy(), **SUM_TOL)
-    npad = n + (-n) % (4 * (p - 1))
-    assert (npad // (p - 1)) % 4 == 0
+    npad = n + (-n) % (p - 1)
+    c = npad // (p - 1)
+    assert tr.buffers
+    for shape, stride, ptr, itemsize, length in tr.buffers:
+        assert length == c                          # JAX's chunk boundaries
+        assert shape == (p, p - 1, -(-c // 4) * 4)  # a row per chunk
+        assert (stride[1] * itemsize) % 16 == 0 and ptr % 16 == 0
     assert tr.link_load(1) == 2 * npad
+
+
+def _tree_members(x, n):
+    return [drv.tree_leaves(x[i], n) for i in range(x.shape[0])]
 
 
 @pytest.fixture(scope="module")
@@ -141,3 +167,55 @@ def test_optcc_matches_jax_per_member(jax_results, straggler):
     got = optcc_allreduce(x, straggler, LocalTransport(drv.P))
     np.testing.assert_allclose(got.numpy(), jax_results[f"optcc_{straggler}"],
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", drv.TREE_NS)
+@pytest.mark.parametrize("straggler", drv.STRAGGLERS)
+def test_tree_matches_jax_bit_for_bit(jax_results, n, straggler):
+    """optcc_allreduce_tree equals JAX's to the bit: the same chunks, the
+    same additions (fp32 leaves, a bf16 leaf cast to fp32 and back)."""
+    x = torch.from_numpy(jax_results["tree_x"][:, :n])
+    got = optcc_allreduce_tree(iter(_tree_members(x, n)), straggler,
+                               LocalTransport(drv.P))
+    assert [g.dtype for g in got] == [torch.float32, torch.float32,
+                                      torch.bfloat16]
+    for i, g in enumerate(got):
+        want = jax_results[f"tree_{n}_{straggler}_{i}"]
+        assert all(np.array_equal(g.float().numpy(), w) for w in want), i
+
+
+@pytest.mark.parametrize("outer", [True, False])
+def test_hierarchical_matches_jax_bit_for_bit(jax_results, outer):
+    """hierarchical_psum on the 2 x 2 ('outer', 'inner') mesh: psum over
+    each inner pair, then (with outer) over each outer pair."""
+    x = torch.from_numpy(jax_results["x"])
+    got = hierarchical_psum(x, drv.INNER, LocalTransport(drv.P), outer)
+    assert np.array_equal(got.numpy(), jax_results[f"hier_{outer}"])
+
+
+def test_compressed_matches_jax_on_dyadic_inputs_bit_for_bit(jax_results):
+    """Inputs whose sums are exact in fp32 in any order: what is left to
+    compare is the quantization, and it agrees to the bit."""
+    x = torch.from_numpy(drv.dyadic_input())
+    got, err = compressed_psum(x, LocalTransport(drv.P))
+    assert np.array_equal(got.numpy(), jax_results["compressed_dyadic"])
+    assert np.array_equal(err.numpy(), jax_results["compressed_dyadic_error"])
+
+
+def test_compressed_matches_jax_within_one_quantum(jax_results):
+    """Seeded normal inputs with an error-feedback term: psum_scatter's
+    additions may associate otherwise, so a quantized value may round to
+    its neighbour: within one quantum (the shard's scale) per element."""
+    p, n = drv.P, drv.COLLECTIVE_N
+    x = torch.from_numpy(jax_results["x"])
+    error = torch.from_numpy(drv.error_input())
+    got, err = compressed_psum(x, LocalTransport(p), error)
+    c = -(-n // p)
+    shards = torch.nn.functional.pad(x + error, (0, p * c - n)).sum(0)
+    quantum = (shards.view(p, c).abs().amax(1) / 127).repeat_interleave(c)
+    quantum = quantum[:n].numpy()
+    for g, w in ((got, jax_results["compressed_normal"]),
+                 (err, jax_results["compressed_normal_error"])):
+        assert np.all(np.abs(g.numpy() - w) <= quantum)
+    np.testing.assert_allclose(got.numpy(), (x + error).sum(0).expand(
+        p, n).numpy(), atol=float(quantum.max()), rtol=0)

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of repro_torch and
-chip_smoke.py loads no JAX and no module of the JAX package; the device
-pick never falls back to the CPU."""
+chip_smoke.py, in this process or in the ranks of a gloo run, loads no JAX
+and no module of the JAX package; the device pick never falls back to the
+CPU."""
 import os
 import pathlib
 import shutil
@@ -34,7 +35,8 @@ for mod in ("kernels.chunk_reduce.kernel", "kernels.flash_attention.kernel",
             "configs.whisper_base", "models.hymba", "models.whisper",
             "configs.phi35_moe", "configs.arctic_480b", "models.moe",
             "checkpoint.ckpt",
-            "checkpoint._msgpack"):
+            "checkpoint._msgpack", "comms.transport", "comms.dist",
+            "comms.parity"):
     assert "repro_torch." + mod in names, mod
 print("IMPORTED", len(names))
 """
@@ -74,6 +76,21 @@ def test_checkpoint_needs_no_msgpack_nor_ml_dtypes():
                           timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "IMPORTED" in proc.stdout
+
+
+def test_spawned_ranks_import_no_jax():
+    """The processes of a gloo run (comms.dist.spawn) import every module
+    of the port and load no JAX and nothing of the JAX package."""
+    import pkgutil
+
+    import repro_torch
+    from repro_torch.comms import dist
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")]
+    assert "repro_torch.launch.train" in names
+    for loaded in dist.spawn(dist.imported_modules, 2, (names,)):
+        assert "repro_torch" in loaded and "torch" in loaded
+        assert not {"jax", "jaxlib", "repro"} & set(loaded), loaded
 
 
 def test_resolve_device_never_falls_back():

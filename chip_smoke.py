@@ -99,6 +99,16 @@ phases, each printing one JSON line:
   main_path_phi35moe - the training launcher on phi3.5-moe at full width
                  and one layer (`--set n_layers=1`; bf16 experts beside
                  the fp32 router: two gradient buffers), as internlm2's;
+  train_gspmd_minicpm - `make_gspmd_train_step` (the single-device GSPMD
+                 step) on minicpm-2b at full width and depth, remat
+                 "full", 4 microbatches of 2 x 4096 tokens, 3 steps: each
+                 step's seconds, loss, grad norm, peak GiB and mfu; first,
+                 at 2 layers, such a step against one with remat "none";
+  train_gspmd_remat - the same step on qwen3-1.7b at full width and depth
+                 with remat none, full and dots at the largest (batch,
+                 sequence) at which "none" fits the card (peak GiB and
+                 seconds of each), then 16 x 4096 tokens as 8
+                 microbatches with "full";
   serve_phi35moe, serve_arctic - the serve launcher on phi3.5-moe (24 of
                  32 layers) and arctic-480b (2 of 35) at full width,
                  depth cut by `--set n_layers=N` to fit the card (batch 8,
@@ -137,7 +147,8 @@ phases, each printing one JSON line:
 
 Each path (training, its resumed and rescaled runs, the process
 transport's collectives and training, internlm2's, hymba's and
-phi3.5-moe's training, the ten serve runs, the smoke configs' card run) is
+phi3.5-moe's training, the GSPMD steps, the ten serve runs, the smoke
+configs' card run) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after. Then it prints the whole run's seconds, the card's name and
 power limit (nvidia-smi), a `kernels` JSON line, and, as the last line,
@@ -277,6 +288,25 @@ DIST_ARGV = ["--arch", "qwen3-1.7b", "--set", f"n_layers={DIST_LAYERS}"] + \
 STEP_TOL = (1e-5, 1e-4)
 REFERENCE_LR, REFERENCE_STEPS = 1e-3, 3      # phase_reference's DP run
 HASH_SLICE = 1 << 26       # elements per slice of a leaf's card hash
+# the single-device GSPMD step (make_gspmd_train_step). minicpm-2b at full
+# width and depth: train_4k's sequence of 4096, its global batch of 256
+# cut to 8 (4 microbatches of 2) to fit the script's time, remat="full"
+# as the JAX dry run sets it on train cells; the remat-vs-none check at
+# `check_layers` layers, where a step without remat fits the card
+GSPMD_MINICPM = {"arch": "minicpm-2b", "seq_len": 4096, "global_batch": 8,
+                 "microbatches": 4, "steps": 3, "remat": "full",
+                 "check_layers": 2, "lr": 1e-3}
+# qwen3-1.7b: remat none / full / dots at the largest (batch, seq_len) at
+# which "none" fits the card with 20 GiB to spare (tools/gspmd_phases.py
+# --probe: "none" peaks at 45.0 GiB at 4 x 1024 and 71.6 of 79.2 at
+# 8 x 1024; 2 x 2048 and 1 x 4096 run out), two steps each (the first
+# also grows the allocator's pool, so only the second is warm), then
+# `long`
+GSPMD_REMAT = {"arch": "qwen3-1.7b", "batch": 6, "seq_len": 1024,
+               "steps": 2, "lr": 1e-3,
+               "long": {"seq_len": 4096, "global_batch": 16,
+                        "microbatches": 8, "remat": "full"}}
+GSPMD_SEED = 0
 
 
 def emit(obj: dict) -> None:
@@ -345,6 +375,8 @@ def main() -> int:
     n_phi35moe, phi35moe_launches = phase_main_path_arch(torch, dev,
                                                          PHI35MOE_ARGV)
     _add(launches, phi35moe_launches)
+    _add(launches, phase_train_gspmd_minicpm(torch, dev))
+    _add(launches, phase_train_gspmd_remat(torch, dev))
     for spec in SERVE_SPECS:
         _add(launches, phase_serve(torch, dev, spec))
     phase_reference(torch, dev)
@@ -1428,6 +1460,207 @@ def phase_main_path_arch(torch, dev, argv) -> tuple:
     del state
     torch.cuda.empty_cache()
     return groups, launches
+
+
+def _gspmd_batches(torch, dev, cfg, batch: int, seq_len: int, steps: int,
+                   seed: int) -> list:
+    """`steps` SyntheticLM batches of (batch, seq_len) tokens on the card,
+    made before any step is timed."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=seq_len, global_batch=batch,
+                                  seed=seed))
+    return [{k: torch.from_numpy(v).long().to(dev)
+             for k, v in data.batch(i).items()} for i in range(steps)]
+
+
+def _gspmd_steps(torch, dev, cfg, batches: list, nmb: int, lr: float,
+                 seed: int = GSPMD_SEED):
+    """`make_gspmd_train_step` on cfg from `init_train_state(seed)`, one
+    step a batch; returns (state, one record a step: seconds, the step's
+    own grad / update seconds, loss, grad norm, its peak GiB, tokens and
+    mfu = 6 params tokens / (seconds x the bf16 peak))."""
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedules import constant
+    from repro_torch.sharding import Mesh
+    from repro_torch.train import init_train_state, make_gspmd_train_step
+    model = build_model(cfg)
+    state = init_train_state(model, AdamWConfig(), seed, dev)
+    n_params = sum(v.numel() for v in state.params.values())
+    step = make_gspmd_train_step(model, Mesh((1,), ("data",)), AdamWConfig(),
+                                 constant(lr), num_microbatches=nmb)
+    records = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        tokens = batch["tokens"].numel()
+        rec = {"step": state.step - 1, "seconds": seconds,
+               "grad_seconds": m["grad_seconds"],
+               "update_seconds": m["update_seconds"],
+               "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "tokens": tokens,
+               "mfu": 6 * n_params * tokens / (seconds * BF16_FLOPS)}
+        require(math.isfinite(rec["loss"]) and
+                math.isfinite(rec["grad_norm"]),
+                f"{cfg.name} step {rec['step']}: loss {rec['loss']}, grad "
+                f"norm {rec['grad_norm']}")
+        records.append(rec)
+    return state, records
+
+
+def _params_finite(torch, state, what: str) -> None:
+    for k, v in state.params.items():
+        require(all(bool(torch.isfinite(s).all())
+                    for s in v.detach().reshape(-1).split(HASH_SLICE)),
+                f"{what}: non-finite {k}")
+
+
+def _sign_flip_gap(torch, got: dict, want: dict, lr: float,
+                   steps: int = 1) -> dict:
+    """Parameters after `steps` AdamW steps against others from the same
+    init: each within AdamW's sign-flip bound, 2 lr a step (plus one bf16
+    rounding of the parameter). Returns the largest gap and the count
+    past 1e-4."""
+    worst, past, n = 0.0, 0, 0
+    for k, w in want.items():
+        for g, r in zip(got[k].detach().reshape(-1).split(HASH_SLICE),
+                        w.reshape(-1).split(HASH_SLICE)):
+            g, r = g.float(), r.to(g.device).float()
+            diff = (g - r).abs()
+            limit = 2 * lr * steps + (_ulp_bf16(torch, r)
+                                      if w.dtype == torch.bfloat16 else 0.0)
+            require(not bool((diff > limit).any()),
+                    f"{k}: {float(diff.max())} past AdamW's sign-flip bound")
+            worst = max(worst, float(diff.max()))
+            past += int((diff > STEP_TOL[1]).sum())
+            n += diff.numel()
+    return {"params_abs": worst, "params_past_1e-4": past, "params": n}
+
+
+def phase_train_gspmd_minicpm(torch, dev) -> dict:
+    """minicpm-2b at full width and depth through `make_gspmd_train_step`
+    on one card, remat="full", microbatches of 2 rows of 4096 tokens:
+    first, at GSPMD_MINICPM["check_layers"] layers, one such step against
+    one with remat="none" from the same init (the losses within STEP_TOL,
+    the parameters within AdamW's sign-flip bound: the embedding
+    backward's atomics are not deterministic); then `steps` steps of the
+    whole model, the launch counts set to 0 just before and read just
+    after (no kernel is on this path: one device has no gradient sync,
+    and training attention is the plain version through autograd, as in
+    JAX). Each step's seconds, loss, grad norm, peak GiB and mfu; finite
+    parameters after the last. Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    spec = GSPMD_MINICPM
+    cfg = get_config(spec["arch"]).replace(remat=spec["remat"])
+    nmb, lr = spec["microbatches"], spec["lr"]
+    t = time.perf_counter()
+    batches = _gspmd_batches(torch, dev, cfg, spec["global_batch"],
+                             spec["seq_len"], spec["steps"], GSPMD_SEED)
+    data_seconds = time.perf_counter() - t
+    cut = cfg.replace(n_layers=spec["check_layers"])
+    state, (plain,) = _gspmd_steps(torch, dev, cut.replace(remat="none"),
+                                   batches[:1], nmb, lr)
+    plain_params = {k: v.detach().cpu() for k, v in state.params.items()}
+    del state
+    torch.cuda.empty_cache()
+    state, (rematted,) = _gspmd_steps(torch, dev, cut, batches[:1], nmb, lr)
+    loss_rel = abs(rematted["loss"] - plain["loss"]) / abs(plain["loss"])
+    require(loss_rel < STEP_TOL[0], f"remat vs none: loss rel {loss_rel}")
+    check = {"n_layers": cut.n_layers, "loss_rel": loss_rel,
+             **_sign_flip_gap(torch, state.params, plain_params, lr),
+             "peak_gib": {"none": plain["peak_gib"],
+                          cfg.remat: rematted["peak_gib"]},
+             "seconds": {"none": plain["seconds"],
+                         cfg.remat: rematted["seconds"]}}
+    del state, plain_params
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    t = time.perf_counter()
+    state, recs = _gspmd_steps(torch, dev, cfg, batches, nmb, lr)
+    seconds = time.perf_counter() - t
+    launches = launch_counts()
+    _params_finite(torch, state, cfg.name)
+    n_params = sum(v.numel() for v in state.params.values())
+    require(state.params["blocks/wq"].shape[0] == cfg.n_layers,
+            f"{cfg.name} trained {state.params['blocks/wq'].shape[0]} layers")
+    emit({"phase": "train_gspmd_minicpm", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "params": n_params, "remat": cfg.remat,
+          "seq_len": spec["seq_len"], "global_batch": spec["global_batch"],
+          "microbatches": nmb, "lr": lr, "steps": recs,
+          "seconds": seconds, "data_seconds": data_seconds,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "launches": launches, "remat_vs_none": check,
+          "host": _host_memory()})
+    del state, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_gspmd_remat(torch, dev) -> dict:
+    """qwen3-1.7b at full width and depth through `make_gspmd_train_step`:
+    two steps each with remat none, full and dots from the same init at
+    GSPMD_REMAT's (batch, seq_len), the largest at which "none" fits the
+    card with 20 GiB to spare; each step's peak GiB and seconds; the losses within STEP_TOL
+    and the parameters within AdamW's sign-flip bound of the "none"
+    run's. Then one step at `long`'s sequence of 4096 and global batch
+    of 16 as 8 microbatches with remat="full". The launch counts are set
+    to 0 before each run and read after. Returns their sum."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    spec = GSPMD_REMAT
+    cfg = get_config(spec["arch"])
+    lr, n = spec["lr"], spec["steps"]
+    batches = _gspmd_batches(torch, dev, cfg, spec["batch"],
+                             spec["seq_len"], n, GSPMD_SEED)
+    launches = {}
+    runs, ref = {}, None
+    for remat in ("none", "full", "dots"):
+        reset_launch_counts()
+        state, recs = _gspmd_steps(torch, dev, cfg.replace(remat=remat),
+                                   batches, 1, lr)
+        _add(launches, launch_counts())
+        runs[remat] = {"steps": recs}
+        if ref is None:
+            ref = {k: v.detach().cpu() for k, v in state.params.items()}
+        else:
+            loss_rel = max(abs(r["loss"] - w["loss"]) / abs(w["loss"])
+                           for r, w in zip(recs, runs["none"]["steps"]))
+            require(loss_rel < STEP_TOL[0],
+                    f"remat={remat} vs none: loss rel {loss_rel}")
+            runs[remat]["vs_none"] = {
+                "loss_rel": loss_rel,
+                **_sign_flip_gap(torch, state.params, ref, lr, n)}
+        del state
+        torch.cuda.empty_cache()
+    del ref
+    long = spec["long"]
+    batches = _gspmd_batches(torch, dev, cfg, long["global_batch"],
+                             long["seq_len"], 1, GSPMD_SEED)
+    reset_launch_counts()
+    state, recs = _gspmd_steps(torch, dev, cfg.replace(remat=long["remat"]),
+                               batches, long["microbatches"], lr)
+    _add(launches, launch_counts())
+    _params_finite(torch, state, cfg.name)
+    emit({"phase": "train_gspmd_remat", "arch": cfg.name,
+          "n_layers": cfg.n_layers,
+          "params": sum(v.numel() for v in state.params.values()),
+          "batch": spec["batch"], "seq_len": spec["seq_len"],
+          "microbatches": 1, "remat": runs,
+          "long": {**long, "step": recs[0]}, "launches": launches,
+          "phase_seconds": time.perf_counter() - t_phase})
+    del state, batches
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _serve_kernels(cfg, n_new: int) -> dict:

@@ -6,10 +6,13 @@ qwen3-1.7b, gemma3-27b (with its local:global attention), internlm2-1.8b
 M-RoPE and a patch-embedding prefix), the MoE decoders phi3.5-moe and
 arctic-480b (top-k capacity dispatch; arctic with a dense residual FFN),
 rwkv6-7b, the hybrid hymba-1.5b (attention and Mamba heads in parallel)
-and the encoder-decoder whisper-base.
+and the encoder-decoder whisper-base; and the shape cells that the JAX
+dry run and benchmarks share (`ShapeCell`, `SHAPES`,
+`cell_is_applicable`).
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.configs.base import ModelConfig
@@ -28,6 +31,32 @@ _MODULES = {
 }
 
 ARCH_IDS = tuple(_MODULES)          # the JAX registry's ids, in its order
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+SHAPES = (
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "decode"),
+)
+
+# long_500k needs sub-quadratic attention or a bounded state: the pure
+# full-attention archs skip it
+LONG_CONTEXT_ARCHS = ("rwkv6-7b", "hymba-1.5b", "gemma3-27b")
+
+
+def cell_is_applicable(arch: str, shape: ShapeCell) -> tuple[bool, str]:
+    if shape.name == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+        return False, "pure full-attention arch: 512k decode skipped"
+    return True, ""
 
 
 def parse_overrides(pairs) -> dict:

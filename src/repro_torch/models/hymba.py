@@ -33,6 +33,7 @@ from repro_torch.models.common import (BLOCKS, chunked_scan,
                                        chunked_softmax_xent, embed_tokens,
                                        init_dense, layer_params, rms_norm,
                                        swiglu, torch_dtype, unbound_layers)
+from repro_torch.models.shardctx import constrain_batch
 from repro_torch.models.transformer import (_last_logits, _positions,
                                             _project_qkv)
 
@@ -183,7 +184,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
     attend = functools.partial(attn.attention, causal=True,
                                window=cfg.hymba_window)
     for bp in unbound_layers(params):
-        x = _layer(cfg, bp, x, positions, attend)[0]
+        x = _layer(cfg, bp, constrain_batch(x), positions, attend)[0]
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

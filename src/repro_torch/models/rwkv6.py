@@ -29,6 +29,7 @@ from repro_torch.models.common import (BLOCKS, chunked_scan,
                                        chunked_softmax_xent, embed_tokens,
                                        init_dense, layer_params, rms_norm,
                                        torch_dtype, unbound_layers)
+from repro_torch.models.shardctx import constrain_batch
 
 
 def _dims(cfg: ModelConfig) -> tuple[int, int]:
@@ -165,7 +166,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor
     the training scan."""
     x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
     for bp in unbound_layers(params):
-        x, _ = _layer_parallel(cfg, bp, x, scan=True)
+        x, _ = _layer_parallel(cfg, bp, constrain_batch(x), scan=True)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -226,7 +227,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     cache = init_cache(cfg, x.shape[0], x.shape[1], x.device)
     for layer in range(cfg.n_layers):
         x, (tsh, csh, state) = _layer_parallel(
-            cfg, layer_params(params, layer), x)
+            cfg, layer_params(params, layer), constrain_batch(x))
         cache["wkv"][layer] = state
         cache["tshift"][layer] = tsh
         cache["cshift"][layer] = csh

@@ -14,12 +14,18 @@ before the token embeddings, whose label positions are masked (-100).
 Parameters are one flat dict keyed by the JAX pytree's "/"-joined paths
 ("embed", "blocks/wq", "final_norm", ...) in the pytree's leaf order (sorted
 paths), with layer weights stacked as (L, ...), so weights convert one to
-one. The layer loop is a Python loop over the unbound stacks.
+one. The layer loop is a Python loop over the unbound stacks; training
+runs each block under `cfg.remat` (`remat_block`: "none", "full" or
+"dots"), as JAX wraps `dense_block` in `jax.checkpoint`.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -29,6 +35,7 @@ from repro_torch.models.common import (BLOCKS, apply_mrope, apply_rope,
                                        chunked_softmax_xent, embed_tokens,
                                        init_dense, layer_params, rms_norm,
                                        swiglu, torch_dtype, unbound_layers)
+from repro_torch.models.shardctx import constrain_batch
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -38,8 +45,6 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append(f"family {cfg.family!r}")
     if cfg.encoder_layers:
         missing.append("cross-attention")
-    if cfg.remat != "none":
-        missing.append(f"remat={cfg.remat!r}")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
@@ -170,11 +175,44 @@ def dense_block(cfg: ModelConfig, x, bp, positions, is_global: bool = True,
     return _block_tail(cfg, x, bp, out)
 
 
+# the matrix products that remat="dots" saves: what `@`, `torch.einsum`
+# and `torch.bmm` dispatch to, as JAX's checkpoint_dots saves every
+# dot_general (attention's score and value products included)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_block(cfg: ModelConfig, block):
+    """`block` under cfg.remat, as JAX wraps dense_block: "none" as it is;
+    "full" checkpointed (only its inputs kept, the rest recomputed in the
+    backward); "dots" selectively checkpointed (the outputs of its matrix
+    products kept, the rest recomputed). Autograd's graph is the same in
+    all three, so the gradients are too, to the bit."""
+    if cfg.remat == "none":
+        return block
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, block, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, block, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r} (none, full "
+                     "or dots)")
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             positions=None, prefix_embeds=None) -> torch.Tensor:
     """tokens: (B, S) -> hidden states (B, P + S, d), P the length of the
     optional prefix_embeds (B, P, d)."""
     check_supported(cfg)
+    block = remat_block(cfg, functools.partial(dense_block, cfg))
     x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -182,7 +220,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     if positions is None:
         positions = _positions(cfg, B, S, x.device)
     for bp, is_global in zip(unbound_layers(params), layer_is_global(cfg)):
-        x = dense_block(cfg, x, bp, positions, bool(is_global))
+        x = block(constrain_batch(x), bp, positions, bool(is_global))
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -258,6 +296,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     positions = _positions(cfg, tokens.shape[0], 1, x.device, pos)
     for layer, (is_global, gidx, lidx) in enumerate(
             zip(*_cache_index_maps(cfg))):
+        x = constrain_batch(x)
         bp = layer_params(params, layer)
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(cfg, bp, h, positions)
@@ -294,6 +333,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
         slots = torch.arange(S - keep, S, device=x.device) % w
     for layer, (is_global, gidx, lidx) in enumerate(
             zip(*_cache_index_maps(cfg))):
+        x = constrain_batch(x)
         bp = layer_params(params, layer)
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(cfg, bp, h, positions)

@@ -34,6 +34,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (chunked_softmax_xent, embed_tokens,
                                        init_dense, rms_norm, swiglu,
                                        torch_dtype, unbound_layers)
+from repro_torch.models.shardctx import constrain_batch
 from repro_torch.models.transformer import (_block_tail, _last_logits,
                                             _positions, _project_qkv,
                                             init_block_params)
@@ -75,6 +76,7 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     attend = attn.full_attention if serving else functools.partial(
         attn.attention, causal=False)
     for bp in unbound_layers(params, ENC):
+        x = constrain_batch(x)
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(cfg, bp, h, positions)
         x = _block_tail(cfg, x, bp, attend(q, k, v))
@@ -116,7 +118,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     causal = functools.partial(attn.attention, causal=True)
     full = functools.partial(attn.attention, causal=False)
     for bp in unbound_layers(params, DEC):
-        x = _decoder_layer(cfg, bp, x, positions, causal,
+        x = _decoder_layer(cfg, bp, constrain_batch(x), positions, causal,
                            *_cross_kv(cfg, bp, enc), full)[0]
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 

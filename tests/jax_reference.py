@@ -7,6 +7,7 @@ the tests run this file in a subprocess:
     python tests/jax_reference.py collectives OUT.npz
     python tests/jax_reference.py train_step OUT.npz [--arch ARCH]
     python tests/jax_reference.py elastic DIR
+    python tests/jax_reference.py gspmd_step OUT.npz
 
 The first two write their inputs and the JAX results to OUT.npz
 (`collectives`: ring, OptCC flat and tree, hierarchical_psum on a 2 x 2
@@ -20,13 +21,24 @@ and rwkv6-7b, and a qwen2-vl-2b batch carries text only, no patch prefix,
 as the JAX launcher's does). `elastic`
 saves JAX's initial train state as DIR/ckpt/step_0, runs the JAX launcher
 from it with a node loss (ELASTIC_ARGV) and writes the launcher's printed
-lines and final parameters to DIR/elastic.npz. Importing this module (as
-the tests do, for `flat_numpy`) sets nothing and imports no JAX.
+lines and final parameters to DIR/elastic.npz. `gspmd_step` runs one
+`make_gspmd_train_step` step on a one-device mesh for each case of
+GSPMD_CASES (all ten smoke configs at one microbatch, qwen3-smoke with 4
+microbatches and remat="full") from JAX's init on `gspmd_batch`, and
+writes the initial and final parameters, the AdamW first moments (0.1 x
+the clipped gradients) and the metrics; and, as a JSON string under
+"specs", `batch_spec` and `param_pspec` of every leaf of the ten FULL configs
+(`jax.eval_shape` of their init) and `input_specs` / `cache_specs` of
+every (arch, shape cell) pair that `cell_is_applicable` admits, on both
+production meshes, fsdp on and off (512 forced host devices). Importing
+this module (as the tests do, for `flat_numpy` and `gspmd_batch`) sets
+nothing and imports no JAX.
 """
 import contextlib
 import io
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -234,14 +246,143 @@ def elastic(out_dir: str) -> None:
              **flat_numpy(state.params, "params/"))
 
 
+GSPMD_LR = 1e-3
+GSPMD_ARCHS = ("qwen3-1.7b", "gemma3-27b", "minicpm-2b", "internlm2-1.8b",
+               "rwkv6-7b", "arctic-480b", "phi3.5-moe-42b-a6.6b",
+               "hymba-1.5b", "whisper-base", "qwen2-vl-2b")
+# case name -> (arch, num_microbatches, remat override or None)
+GSPMD_CASES = {arch: (arch, 1, None) for arch in GSPMD_ARCHS}
+GSPMD_CASES["qwen3-1.7b/mb4_full"] = ("qwen3-1.7b", 4, "full")
+MESH_DEVICES = 512          # the (2, 16, 16) production mesh
+
+
+def gspmd_batch(cfg, B: int = 8, S: int = 24, seed: int = 0) -> dict:
+    """A numpy batch for either package's `cfg` (the two are field-equal):
+    next-token labels, the first 3 masked; whisper's standard-normal
+    frames and qwen2-vl's patch prefix, as tests/test_arch_smoke.py
+    draws them."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1))
+    batch = {"tokens": toks[:, :-1].astype(np.int32),
+             "labels": toks[:, 1:].astype(np.int32)}
+    batch["labels"][:, :3] = -100
+    if cfg.family == "whisper":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = rng.standard_normal(
+            (B, cfg.n_patch_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def spec_json(spec) -> list:
+    """A partition spec (JAX's or the port's) as JSON: one entry per dim,
+    None, an axis name or a list of axis names."""
+    if spec is None:
+        return None
+    return [list(p) if isinstance(p, tuple) else p for p in spec]
+
+
+def _specs() -> dict:
+    import dataclasses
+
+    import jax
+
+    from repro.configs import SHAPES, cell_is_applicable, get_config
+    from repro.launch.mesh import (cache_specs, input_specs,
+                                   make_production_mesh)
+    from repro.models import build_model
+    from repro.train.step import batch_spec, param_pspec
+
+    def sds(tree):
+        return {k: [list(v.shape), str(v.dtype),
+                    spec_json(v.sharding.spec if v.sharding else None)]
+                for k, v in tree.items()}
+
+    out = {"shapes": [dataclasses.asdict(c) for c in SHAPES], "params": {},
+           "leaf_shapes": {}, "inputs": {}, "caches": {},
+           "batch_spec": {str(multi): spec_json(batch_spec(
+               make_production_mesh(multi_pod=multi)))
+               for multi in (False, True)}}
+    for arch in GSPMD_ARCHS:
+        cfg = get_config(arch)
+        shapes = jax.eval_shape(build_model(cfg).init, jax.random.PRNGKey(0))
+        leaves = _flat_shapes(shapes)
+        out["leaf_shapes"][arch] = {k: [list(v.shape), str(v.dtype)]
+                                    for k, v in leaves.items()}
+        for multi in (False, True):
+            mesh = make_production_mesh(multi_pod=multi)
+            for fsdp in (True, False):
+                c = cfg.replace(fsdp=fsdp)
+                out["params"][f"{arch}|{multi}|{fsdp}"] = {
+                    k: spec_json(param_pspec(k, v, c, mesh))
+                    for k, v in leaves.items()}
+            for shape in SHAPES:
+                if not cell_is_applicable(arch, shape)[0]:
+                    continue
+                key = f"{arch}|{shape.name}|{multi}"
+                out["inputs"][key] = sds(input_specs(arch, shape, mesh))
+                if shape.kind == "decode":
+                    out["caches"][key] = sds(cache_specs(
+                        cfg, mesh, shape.global_batch, shape.seq_len))
+    return out
+
+
+def _flat_shapes(tree) -> dict:
+    import jax
+    return {"/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                     for p in path): leaf
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def gspmd_step(out_path: str) -> None:
+    import json
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from repro.configs import get_config
+    from repro.models import build_model
+    from repro.optim import AdamWConfig
+    from repro.optim.schedules import constant
+    from repro.train import init_train_state, make_gspmd_train_step
+    assert jax.device_count() == MESH_DEVICES, jax.device_count()
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    opt = AdamWConfig(weight_decay=0.01)
+
+    def run(item):
+        case, (arch, nmb, remat) = item
+        cfg = get_config(arch, smoke=True)
+        if remat:
+            cfg = cfg.replace(remat=remat)
+        model = build_model(cfg)
+        state = init_train_state(model, opt, seed=0)
+        out = flat_numpy(state.params, f"{case}/init/")
+        step = jax.jit(make_gspmd_train_step(model, mesh, opt,
+                                             constant(GSPMD_LR),
+                                             num_microbatches=nmb))
+        state, m = step(state, jax.tree.map(jnp.asarray, gspmd_batch(cfg)))
+        out.update(flat_numpy(state.params, f"{case}/params/"))
+        out.update(flat_numpy(state.opt_state["mu"], f"{case}/mu/"))
+        for k in ("loss", "grad_norm", "lr"):
+            out[f"{case}/{k}"] = np.asarray(m[k])
+        return out
+
+    res = {}
+    # the cases' compiles overlap on threads (each is its own program)
+    with ThreadPoolExecutor(4) as pool:
+        for out in pool.map(run, GSPMD_CASES.items()):
+            res.update(out)
+    res["specs"] = np.asarray(json.dumps(_specs()))
+    np.savez(out_path, **res)
+
+
 if __name__ == "__main__":
-    os.environ["XLA_FLAGS"] = (
-        f"--xla_force_host_platform_device_count={P} "
-        + os.environ.get("XLA_FLAGS", ""))
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=["collectives", "train_step", "elastic"])
+    ap.add_argument("what", choices=["collectives", "train_step", "elastic",
+                                     "gspmd_step"])
     ap.add_argument("out")
     ap.add_argument("--arch", default=TRAIN_ARCH,
                     choices=["qwen3-1.7b", "gemma3-27b", "internlm2-1.8b",
@@ -250,7 +391,13 @@ if __name__ == "__main__":
                              "rwkv6-7b"],
                     help="train_step's config (its smoke variant)")
     args = ap.parse_args()
+    n_dev = MESH_DEVICES if args.what == "gspmd_step" else P
+    os.environ["XLA_FLAGS"] = (
+        f"--xla_force_host_platform_device_count={n_dev} "
+        + os.environ.get("XLA_FLAGS", ""))
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     if args.what == "train_step":
         train_step(args.out, args.arch)
     else:
-        {"collectives": collectives, "elastic": elastic}[args.what](args.out)
+        {"collectives": collectives, "elastic": elastic,
+         "gspmd_step": gspmd_step}[args.what](args.out)

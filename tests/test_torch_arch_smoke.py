@@ -1,7 +1,9 @@
 """tests/test_arch_smoke.py for the port, over all ten ARCH_IDS: the full
 configs' published shapes (and that each builds a model), and on each
-smoke config a finite loss and finite gradients, one DP step (2 members,
-psum) with finite metrics and parameters, and the shapes of a prefill and
+smoke config a finite loss and finite gradients, one training step with
+finite metrics and parameters - through `make_gspmd_train_step` on a
+one-device mesh, as tests/test_arch_smoke.py trains, and through the DP
+step (2 members, psum) - and the shapes of a prefill and
 a decode step. Also the launchers' `--set key=value` config overrides:
 parsed as the JAX dry run parses them (`repro/launch/dryrun.py`, run in a
 subprocess with its `run_cell` stubbed), applied by `cfg.replace` (an
@@ -26,8 +28,10 @@ from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.optim.schedules import constant  # noqa: E402
+from repro_torch.sharding import Mesh  # noqa: E402
 from repro_torch.train import (init_train_state,  # noqa: E402
-                               make_dp_failover_step)
+                               make_dp_failover_step,
+                               make_gspmd_train_step)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SPEC = {  # tests/test_arch_smoke.py's table
@@ -81,8 +85,9 @@ def test_full_config_matches_spec(arch):
     assert build_model(cfg).cfg is cfg        # builds, allocating nothing
 
 
+@pytest.mark.parametrize("kind", ["gspmd", "dp"])
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_smoke_forward_and_train_step(arch):
+def test_smoke_forward_and_train_step(arch, kind):
     cfg = get_config(arch, smoke=True)
     model = build_model(cfg)
     batch = make_batch(cfg)
@@ -96,8 +101,12 @@ def test_smoke_forward_and_train_step(arch):
 
     opt = AdamWConfig()
     state = init_train_state(model, opt, device="cpu")
-    step = make_dp_failover_step(model, LocalTransport(2), opt,
-                                 constant(1e-3), FaultState(2))
+    if kind == "gspmd":
+        step = make_gspmd_train_step(model, Mesh((1,), ("data",)), opt,
+                                     constant(1e-3))
+    else:
+        step = make_dp_failover_step(model, LocalTransport(2), opt,
+                                     constant(1e-3), FaultState(2))
     state, metrics = step(state, batch)
     assert np.isfinite(float(metrics["loss"]))
     assert np.isfinite(float(metrics["grad_norm"]))

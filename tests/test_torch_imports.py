@@ -36,8 +36,17 @@ for mod in ("kernels.chunk_reduce.kernel", "kernels.flash_attention.kernel",
             "configs.phi35_moe", "configs.arctic_480b", "models.moe",
             "checkpoint.ckpt",
             "checkpoint._msgpack", "comms.transport", "comms.dist",
-            "comms.parity"):
+            "comms.parity", "sharding", "models.shardctx", "launch.mesh",
+            "train.step"):
     assert "repro_torch." + mod in names, mod
+from repro_torch.train import (batch_spec, make_gspmd_train_step,
+                               param_pspec, shardings_for_params)
+from repro_torch.configs import SHAPES, cell_is_applicable
+from repro_torch.launch.mesh import cache_specs, input_specs
+from repro_torch.models.shardctx import constrain_batch
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
 print("IMPORTED", len(names))
 """
 

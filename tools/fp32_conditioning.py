@@ -7,6 +7,8 @@ tests and of chip_smoke.py.
     PYTHONPATH=src python tools/fp32_conditioning.py --arch whisper-base \
         --chip-batch                             # chip_smoke's loss run
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/fp32_conditioning.py \
+        --arch whisper-base --gspmd-batch --jax  # the GSPMD step test's
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/fp32_conditioning.py \
         --arch hymba-1.5b --dp OUT.npz           # three DP steps' grad norms
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/fp32_conditioning.py \
         --arch arctic-480b --dp OUT.npz --perturb   # the run from a nudged init
@@ -17,24 +19,28 @@ port's code widened to `.double()` for that run only), and prints, worst
 first, each leaf's norm-wise gap ||g - g64|| / ||g64|| of the fp32 run and,
 with --jax, of JAX's fp32 gradients from the same parameters.
 
-The tests' batch (default): JAX's init at seed 0, 2 x 24 tokens from
-numpy seed 1 with next-token labels and row 0's first 3 masked, whisper's
-frames from a generator of their own at seed 1
-(tests/test_torch_{hymba,whisper}.py). --chip-batch:
-chip_smoke.py's `_loss_run`, the port's init at seed 8 and numpy seed 8,
-labels equal to the tokens. --dp OUT.npz: the port's DP step (4 members,
-healthy) from the initial parameters of a `tests/jax_reference.py
-train_step OUT.npz --arch ARCH` run, three steps in fp32 and in float64
-(chunk_reduce's plain version summing in float64 too), the grad norms of
-both and of JAX's run, and each leaf's final parameters of the port's and
-JAX's fp32 runs against float64; with --perturb instead, the port's fp32
-run against itself from an init nudged by about one fp32 rounding
-(x (1 + 1e-7 N(0,1))), and JAX's against it. CPU only.
+The tests' batch (default): JAX's init at seed 0, 2 x 24 tokens from numpy
+seed 1 with next-token labels and row 0's first 3 masked, whisper's frames
+from a generator of their own at seed 1
+(tests/test_torch_{hymba,whisper}.py). --chip-batch: chip_smoke.py's
+`_loss_run`, the port's init at seed 8 and numpy seed 8, labels equal to
+the tokens. --gspmd-batch: JAX's init at seed 0 and
+tests/jax_reference.py's `gspmd_batch` (8 x 24 tokens, every row's first 3
+labels masked; tests/test_torch_gspmd.py). --dp OUT.npz: the port's DP step
+(4 members, healthy) from the initial parameters of a
+`tests/jax_reference.py train_step OUT.npz --arch ARCH` run, three steps in
+fp32 and in float64 (chunk_reduce's plain version summing in float64 too),
+the grad norms of both and of JAX's run, and each leaf's final parameters
+of the port's and JAX's fp32 runs against float64; with --perturb instead,
+the port's fp32 run against itself from an init nudged by about one fp32
+rounding (x (1 + 1e-7 N(0,1))), and JAX's against it. CPU only.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import pathlib
+import sys
 
 import numpy as np
 import torch
@@ -71,7 +77,12 @@ def _cfg(arch: str, dtype: torch.dtype):
                                                 compute_dtype=name)
 
 
-def _batch(cfg, chip: bool) -> dict:
+def _batch(cfg, chip: bool, gspmd: bool = False) -> dict:
+    if gspmd:
+        sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
+                               / "tests"))
+        from jax_reference import gspmd_batch
+        return gspmd_batch(cfg)
     rng = np.random.default_rng(8 if chip else 1)
     if chip:
         toks = rng.integers(0, cfg.vocab_size, (2, 24))
@@ -121,9 +132,10 @@ def _jax_init_and_grads(arch: str, batch: dict):
     return params_from_numpy(flat["params"], "cpu"), flat["grads"]
 
 
-def gradients(arch: str, chip: bool, with_jax: bool) -> None:
+def gradients(arch: str, chip: bool, with_jax: bool,
+              gspmd: bool = False) -> None:
     cfg = get_config(arch, smoke=True)
-    batch = _batch(cfg, chip)
+    batch = _batch(cfg, chip, gspmd)
     jgrads = None
     if chip:
         init = build_model(cfg).init(8, "cpu")
@@ -140,8 +152,10 @@ def gradients(arch: str, chip: bool, with_jax: bool) -> None:
         rows.append((np.linalg.norm(g32[k] - ref) / norm,
                      np.linalg.norm(jgrads[k] - ref) / norm
                      if jgrads else float("nan"), k))
-    print(f"{cfg.name} ({'chip_smoke loss run' if chip else 'tests'} "
-          "batch): ||g - g64|| / ||g64|| per leaf, worst port first")
+    which = "chip_smoke loss run" if chip else "GSPMD step test" if gspmd \
+        else "tests"
+    print(f"{cfg.name} ({which} batch): ||g - g64|| / ||g64|| per leaf, "
+          "worst port first")
     print(f"{'port fp32':>12} {'JAX fp32':>12}  leaf")
     for port, jax_gap, k in sorted(rows, reverse=True):
         print(f"{port:12.3e} {jax_gap:12.3e}  {k}")
@@ -223,6 +237,7 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--chip-batch", action="store_true")
     ap.add_argument("--jax", action="store_true")
+    ap.add_argument("--gspmd-batch", action="store_true")
     ap.add_argument("--dp", default=None, metavar="OUT.npz")
     ap.add_argument("--perturb", action="store_true",
                     help="with --dp: the fp32 run against itself from a "
@@ -233,7 +248,7 @@ def main(argv=None):
     elif args.dp:
         dp_steps(args.arch, args.dp)
     else:
-        gradients(args.arch, args.chip_batch, args.jax)
+        gradients(args.arch, args.chip_batch, args.jax, args.gspmd_batch)
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases NAME [NAME ...]
 
 Builds the port's CUDA kernels from the sources in this checkout (nvcc into
 `build/`, one nvcc per source, all started together), then runs these
@@ -58,6 +59,21 @@ phases, each printing one JSON line:
                  to 2, restores and runs steps 4-5 (chunk_reduce at W = 2);
                  step 4's loss equals the main path's, and steps 4-5 equal
                  to the bit a 2-member run resumed from step_4;
+  schedules    - the flow model: the simulator on the host (CPU named in
+                 the line) over single-straggler profiles at p 16, 64 and
+                 256, two stragglers and a multi-GPU server, "auto" and
+                 every supported algorithm at n = 2^20, k = 16 (makespan
+                 over T0 and over the lower bound, plan-generation ms,
+                 simulation seconds, the slot descriptor's ms at p = 1024);
+                 then the schedule executor on the card over each
+                 supported algorithm's Flow-object schedule of four
+                 profiles, fp32 and bf16: at n = 2^25 + 1 every rank's
+                 output held to an fp64 sum within (p - 1) u sum|x_i|, at
+                 n = 2^20 + 1 to the CPU executor bit for bit; and
+                 qwen3-1.7b's full gradient (the main path's parameter
+                 count, 1,720,574,976 bf16 elements) at p = 4 with straggler 0 at l = 1.5, through the ring
+                 the runtime's FaultState plans and through OptCC. No
+                 kernel is on this path (three JSON lines);
   dist_collectives - the process transport: four processes on the card
                  over gloo, hops staged through pinned host memory. psum
                  (bf16) and optcc_allreduce_tree (fp32, straggler 1) at the
@@ -155,9 +171,17 @@ power limit (nvidia-smi), a `kernels` JSON line, and, as the last line,
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 nonzero and prints no result. It needs a CUDA card and the rest of the
 repository; it imports nothing of JAX.
+
+`--phases` runs only the named phases of those that stand alone (see
+`ALONE`), in the order given, after building the kernels unless no named
+phase launches one; a phase that needs the main path's gradient length
+takes it from qwen3-1.7b's config. It prints their JSON lines, each one's seconds
+and the card's name and power limit, but no `kernels` line and no `ok`
+line: it is a quick look at a few paths, not the smoke test.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import math
@@ -307,6 +331,27 @@ GSPMD_REMAT = {"arch": "qwen3-1.7b", "batch": 6, "seq_len": 1024,
                "long": {"seq_len": 4096, "global_batch": 16,
                         "microbatches": 8, "remat": "full"}}
 GSPMD_SEED = 0
+# the flow model (phase_schedules). Host part: the simulator on the
+# machine's CPU at SCHEDULE_HOST's profiles, n = 2^20, k = 16, for "auto"
+# and every supported algorithm (columnar schedules where a twin exists,
+# Flow objects only up to SCHEDULE_FLOW_P ranks), and the O(p k) slot
+# descriptor of each profile's pattern at SCHEDULE_DESC_P ranks. Card part:
+# the executor on the card over each supported algorithm's Flow-object
+# schedule of SCHEDULE_CARD's profiles, fp32 and bf16 at SCHEDULE_FULL_N
+# (held element-wise to an fp64 sum within (p - 1) u sum|x_i|) and at
+# SCHEDULE_SMALL_N (held to the CPU executor to the bit); then qwen3-1.7b's
+# full gradient at p = 4, straggler 0, l = 1.5, in bf16
+SCHEDULE_SEED = 7
+SCHEDULE_N, SCHEDULE_K = 1 << 20, 16
+SCHEDULE_HOST = tuple(("single", p, ell, 0) for p in (16, 64, 256)
+                      for ell in (1.25, 1.5, 2.0)) + (
+    ("multi", 16, (2.0, 1.5)), ("gpu", 16, 4, 2.0))
+SCHEDULE_FLOW_P, SCHEDULE_DESC_P = 16, 1024
+SCHEDULE_CARD = (("single", 8, 2.0, 0), ("multi", 16, (2.0, 1.5)),
+                 ("gpu", 16, 4, 2.0), ("healthy", 16))
+SCHEDULE_FULL_N, SCHEDULE_SMALL_N = 2 ** 25 + 1, 2 ** 20 + 1
+SCHEDULE_SLICE = 1 << 26     # elements per slice of the fp64 check
+UNIT_ROUNDOFF = {"float32": 2.0 ** -24, "bfloat16": 2.0 ** -8}
 
 
 def emit(obj: dict) -> None:
@@ -318,8 +363,60 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _param_count(arch: str) -> int:
+    """A config's parameter count, from its init on fake tensors."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.sharding import eval_shape
+    model = build_model(get_config(arch))
+    return model.param_count(eval_shape(model.init, 0, device="cpu"))
+
+
+# phases that run alone under --phases: name -> fn(torch, dev)
+ALONE = {
+    "collectives": lambda torch, dev: phase_collectives(torch, dev),
+    "schedules": lambda torch, dev: phase_schedules(
+        torch, dev, _param_count("qwen3-1.7b")),
+    "dist_collectives": lambda torch, dev: phase_dist_collectives(
+        torch, dev, _param_count("qwen3-1.7b")),
+    "main_path_dist": lambda torch, dev: phase_main_path_dist(torch, dev),
+    "train_gspmd_minicpm": lambda torch, dev: phase_train_gspmd_minicpm(
+        torch, dev),
+    "train_gspmd_remat": lambda torch, dev: phase_train_gspmd_remat(
+        torch, dev),
+}
+KERNEL_FREE = ("schedules", "train_gspmd_minicpm", "train_gspmd_remat")
+
+
+def run_alone(torch, dev, names: list) -> int:
+    if any(name not in KERNEL_FREE for name in names):
+        from repro_torch import _build
+        t = time.perf_counter()
+        _build.build_all()
+        emit({"phase": "build", "seconds": time.perf_counter() - t})
+    for name in names:
+        t = time.perf_counter()
+        ALONE[name](torch, dev)
+        emit({"phase": name + "_alone", "seconds": time.perf_counter() - t})
+    print(_smi(), flush=True)
+    return 0
+
+
 def main() -> int:
     t_script = time.perf_counter()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", nargs="+", choices=sorted(ALONE),
+                    metavar="NAME", help="run only these phases: "
+                    + ", ".join(ALONE))
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -335,6 +432,8 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
+    if args.phases:
+        return run_alone(torch, dev, args.phases)
 
     t = time.perf_counter()
     logs = _build.build_all()
@@ -365,6 +464,7 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     del main_run
+    phase_schedules(torch, dev, n_grad)
     _add(launches, phase_dist_collectives(torch, dev, n_grad))
     _add(launches, phase_main_path_dist(torch, dev))
     n_internlm2, internlm2_launches = phase_main_path_arch(
@@ -386,11 +486,7 @@ def main() -> int:
     timings.update(phase_serve_timing(torch, dev, errs))
     emit({"phase": "total", "seconds": time.perf_counter() - t_script})
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(_smi(), flush=True)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         require(launches[name] > 0, f"{name} never launched on its path")
@@ -966,6 +1062,232 @@ def phase_collectives(torch, dev) -> None:
                     f"not 2 x {npad}")
     emit({"phase": "collectives", "p": p, "max_abs_err": out,
           "straggler_link": "2 x padded length"})
+
+
+def _schedule_profile(BP, spec: tuple):
+    """A SCHEDULE_* spec as a BandwidthProfile."""
+    kind, p, *args = spec
+    if kind == "healthy":
+        return BP.healthy(p)
+    if kind == "single":
+        ell, straggler = args
+        return BP.single_straggler(p, ell, straggler)
+    if kind == "multi":
+        return BP.multi_straggler(p, list(args[0]))
+    g, ell = args                  # server 0 degraded
+    return BP.single_straggler(p, ell, 0, g=g)
+
+
+def _host_cpu() -> dict:
+    """The host CPU as /proc/cpuinfo names it (its model name, which a
+    virtual machine may report as "unknown", with the vendor, family and
+    model numbers), its architecture and core count."""
+    import platform
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for ln in f:
+            key, _, value = ln.partition(":")
+            key = key.strip().lower()
+            if not key:
+                break                       # the first processor's block
+            info.setdefault(key, value.strip())
+    name = " ".join(filter(None, (
+        info.get("model name") or platform.processor(), info.get("vendor_id"),
+        "family " + info["cpu family"] if "cpu family" in info else "",
+        "model " + info["model"] if "model" in info else "")))
+    return {"name": name or "not reported", "machine": platform.machine(),
+            "cores": os.cpu_count()}
+
+
+def _schedules_host() -> list:
+    """The simulator on the host: per profile and algorithm the plan's
+    generation ms, the simulation's seconds, makespan / T0 and makespan /
+    lower bound (which must be >= 1), and the descriptor's ms at
+    SCHEDULE_DESC_P ranks (the best of 5 calls, and the first)."""
+    from repro_torch.core import make_plan, registry, simulate
+    from repro_torch.core.model import BandwidthProfile
+    from repro_torch.core.planner import plan_descriptor
+    n, k = SCHEDULE_N, SCHEDULE_K
+    out = []
+    for spec in SCHEDULE_HOST:
+        prof = _schedule_profile(BandwidthProfile, spec)
+        wide = _schedule_profile(BandwidthProfile,
+                                 (spec[0], SCHEDULE_DESC_P) + spec[2:])
+        desc_ms = []
+        for _ in range(5):
+            t = time.perf_counter()
+            plan_descriptor(wide, n, k)
+            desc_ms.append((time.perf_counter() - t) * 1e3)
+        rows = []
+        for name in ("auto",) + registry.supported(prof):
+            arrays = name == "auto" or \
+                registry.get(name).generate_arrays is not None
+            if not arrays and prof.p > SCHEDULE_FLOW_P:
+                rows.append({"algo": name, "skipped": "Flow objects only "
+                             f"up to p = {SCHEDULE_FLOW_P}"})
+                continue
+            t = time.perf_counter()
+            plan = make_plan(prof, n, k, materialize="arrays" if arrays
+                             else True, algo=name)
+            gen_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            res = simulate(plan.schedule)
+            sim_s = time.perf_counter() - t
+            require(res.makespan >= plan.lower_bound * (1 - 1e-12),
+                    f"{spec} {name}: makespan {res.makespan} below the "
+                    f"lower bound {plan.lower_bound}")
+            rows.append({"algo": name, "plan": plan.algo,
+                         "columnar": arrays,
+                         "flows": plan.schedule.num_flows, "gen_ms": gen_ms,
+                         "sim_s": sim_s,
+                         "makespan_over_t0": res.makespan / plan.t0,
+                         "makespan_over_lb": res.makespan / plan.lower_bound,
+                         "predicted_over_t0": plan.predicted_overhead})
+        out.append({"profile": spec, "p": prof.p,
+                    "descriptor_ms": {"p": SCHEDULE_DESC_P,
+                                      "best": min(desc_ms),
+                                      "first": desc_ms[0]},
+                    "algos": rows})
+    return out
+
+
+def _worst_over_bound(torch, x, out, what: str) -> float:
+    """Every rank's output against the fp64 sum of the inputs, in slices of
+    SCHEDULE_SLICE elements: |out - sum| <= (p - 1) u sum|x_i| element-wise
+    (u the dtype's unit roundoff; NaN fails). Returns the largest
+    |out - sum| / bound."""
+    p, n = x.shape
+    u = UNIT_ROUNDOFF[str(x.dtype).removeprefix("torch.")]
+    worst = 0.0
+    for lo in range(0, n, SCHEDULE_SLICE):
+        xs = x[:, lo:lo + SCHEDULE_SLICE].double()
+        want = xs.sum(0)
+        bound = (p - 1) * u * xs.abs().sum(0)
+        del xs
+        for r in range(p):
+            err = (out[r, lo:lo + SCHEDULE_SLICE].double() - want).abs()
+            ok = err <= bound
+            require(bool(ok.all()), f"{what}: rank {r} off the fp64 sum past "
+                    f"(p - 1) u sum|x_i| at {int((~ok).sum())} elements "
+                    f"from {lo}")
+            ratio = torch.where(bound > 0, err / bound, torch.zeros_like(err))
+            worst = max(worst, float(ratio.max()))
+    return worst
+
+
+def _card_execute(torch, sched, x) -> tuple:
+    """The executor on the card: its output, CUDA-event seconds of a second
+    run (the first, untimed, grows the allocator's pool) and peak GiB."""
+    from repro_torch.core.executor import execute
+    execute(sched, x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = execute(sched, x)
+    end.record()
+    torch.cuda.synchronize()
+    return (out, start.elapsed_time(end) / 1e3,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _schedules_card(torch, dev) -> list:
+    """Each supported algorithm's Flow-object schedule of SCHEDULE_CARD's
+    profiles on the card: at SCHEDULE_FULL_N held to the fp64 sum, at
+    SCHEDULE_SMALL_N to the CPU executor, bit for bit."""
+    from repro_torch.core import make_plan, registry
+    from repro_torch.core.executor import execute
+    from repro_torch.core.model import BandwidthProfile
+    gen = torch.Generator(device=dev).manual_seed(SCHEDULE_SEED)
+    rows = []
+    for spec in SCHEDULE_CARD:
+        prof = _schedule_profile(BandwidthProfile, spec)
+        for name in registry.supported(prof):
+            full = make_plan(prof, SCHEDULE_FULL_N, algo=name).schedule
+            small = make_plan(prof, SCHEDULE_SMALL_N, algo=name).schedule
+            for dtype in (torch.float32, torch.bfloat16):
+                what = f"{spec} {name} {dtype}"
+                x = torch.randn((prof.p, SCHEDULE_FULL_N), generator=gen,
+                                device=dev).to(dtype)
+                out, seconds, peak = _card_execute(torch, full, x)
+                worst = _worst_over_bound(torch, x, out, what)
+                del x, out
+                x = torch.randn((prof.p, SCHEDULE_SMALL_N), generator=gen,
+                                device=dev).to(dtype)
+                card, small_s, _ = _card_execute(torch, small, x)
+                require(torch.equal(card.cpu(), execute(small, x.cpu())),
+                        f"{what}: the card's executor differs from the "
+                        f"CPU's at n = {SCHEDULE_SMALL_N}")
+                del x, card
+                rows.append({"profile": spec, "algo": name,
+                             "plan": full.meta["algo"],
+                             "dtype": str(dtype).removeprefix("torch."),
+                             "flows": full.num_flows, "n": SCHEDULE_FULL_N,
+                             "seconds": seconds, "peak_gib": peak,
+                             "max_err_over_bound": worst,
+                             "small_n": SCHEDULE_SMALL_N,
+                             "small_seconds": small_s,
+                             "small_bit_equal_to_cpu": True})
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _schedules_qwen3(torch, dev, n: int) -> list:
+    """qwen3-1.7b's full gradient of n elements synced in bf16 at p = 4
+    with straggler 0 at l = 1.5: the plan the runtime's FaultState returns
+    and OptCC."""
+    from repro_torch.comms.fault import FaultState
+    from repro_torch.core import make_plan
+    state = FaultState(4, 0, 1.5)
+    gen = torch.Generator(device=dev).manual_seed(SCHEDULE_SEED + 1)
+    x = torch.empty((4, n), dtype=torch.bfloat16, device=dev)
+    for row in x:
+        row.normal_(generator=gen)
+    rows = []
+    for source, plan in (
+            ("FaultState.plan", state.plan(n, materialize=True)),
+            ("make_plan(algo='optcc')",
+             make_plan(state.profile(), n, materialize=True, algo="optcc"))):
+        what = f"qwen3-1.7b {source} {plan.algo}"
+        out, seconds, peak = _card_execute(torch, plan.schedule, x)
+        worst = _worst_over_bound(torch, x, out, what)
+        del out
+        torch.cuda.empty_cache()
+        rows.append({"source": source, "plan": plan.algo, "n": n,
+                     "dtype": "bfloat16", "flows": plan.schedule.num_flows,
+                     "seconds": seconds, "peak_gib": peak,
+                     "max_err_over_bound": worst})
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_schedules(torch, dev, n_grad: int) -> None:
+    """The flow model: the simulator on the host and the schedule executor
+    on the card (SCHEDULE_* above; qwen3-1.7b's gradient of n_grad
+    elements). No kernel of the port is on this path: the executor's adds
+    are torch ops, and the launch counts stay 0."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t = time.perf_counter()
+    emit({"phase": "schedules_host", "cpu": _host_cpu(),
+          "n": SCHEDULE_N, "k": SCHEDULE_K, "profiles": _schedules_host(),
+          "seconds": time.perf_counter() - t})
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    t = time.perf_counter()
+    rows = _schedules_card(torch, dev)
+    emit({"phase": "schedules_card", "device": torch.cuda.get_device_name(0),
+          "seed": SCHEDULE_SEED, "schedules": rows,
+          "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    rows = _schedules_qwen3(torch, dev, n_grad)
+    launches = launch_counts()
+    require(not any(launches.values()),
+            f"the executor launched kernels of the port: {launches}")
+    emit({"phase": "schedules_qwen3", "arch": "qwen3-1.7b", "p": 4,
+          "straggler": 0, "ell": 1.5, "runs": rows,
+          "seconds": time.perf_counter() - t})
 
 
 def _hop_lines(hops: list) -> list:

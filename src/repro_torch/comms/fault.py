@@ -6,8 +6,7 @@ injection schedule), and re-builds the train step whenever the state
 changes - the analogue of NCCL communicator re-initialization, with the
 OptCC planner supplying the new collective schedule in O(pk).
 
-The port's copy of `repro/comms/fault.py`; `FailureInjector.to_timeline`
-comes with the slice that ports the simulator's `FaultTimeline`.
+The port's copy of `repro/comms/fault.py`.
 """
 from __future__ import annotations
 
@@ -36,8 +35,10 @@ class FaultState:
         return BandwidthProfile.single_straggler(
             self.axis_size, self.ell, straggler=self.straggler)
 
-    def plan(self, n_elements: int, k: int = 16) -> Plan:
-        return make_plan(self.profile(), n_elements, k)
+    def plan(self, n_elements: int, k: int = 16,
+             materialize: bool = False) -> Plan:
+        return make_plan(self.profile(), n_elements, k,
+                         materialize=materialize)
 
 
 @dataclasses.dataclass
@@ -62,6 +63,33 @@ class FailureInjector:
         if repair_step is not None:
             ev[repair_step] = FaultState(axis_size)
         return cls(axis_size, ev)
+
+    def to_timeline(self, t_per_step: float, base: Optional[FaultState] = None):
+        """Bridge to the simulator's `FaultTimeline`: the step-indexed
+        injection schedule as per-rank SET events at ``step * t_per_step``
+        element-time.
+
+        The injector's schedule is a sequence of whole-cluster states; the
+        timeline wants per-rank deltas, so consecutive states are diffed and
+        only ranks whose slowdown actually changes emit events (a repair
+        emits the explicit return to 1.0). `base` is the state before the
+        first event (default: healthy). The result plugs straight into
+        `planner.replay` / `detect.estimate_timeline`, letting one injection
+        schedule drive both the runtime path and the what-if simulation.
+        """
+        from repro_torch.core.model import FaultTimeline
+        if t_per_step <= 0:
+            raise ValueError("t_per_step must be > 0")
+        cur = (base if base is not None
+               else FaultState(self.axis_size)).profile().slowdown
+        triples: list[tuple[float, int, float]] = []
+        for step in sorted(self.events):
+            nxt = self.events[step].profile().slowdown
+            for r, (a, b) in enumerate(zip(cur, nxt)):
+                if a != b:
+                    triples.append((step * t_per_step, r, b))
+            cur = nxt
+        return FaultTimeline.make(triples)
 
 
 class FaultAwareSync:

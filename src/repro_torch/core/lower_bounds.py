@@ -1,8 +1,5 @@
 """Closed-form lower bounds and achieved-time formulas from the paper.
 
-A copy of `repro/core/lower_bounds.py` up to its per-topology section:
-the bounds and time models the classic planner (auto/ring/optcc) reads.
-
 All times are in *element-time units* of the bandwidth-bound model: a healthy
 NIC moves one element per unit time. Multiply by (bytes_per_element /
 nic_bytes_per_second) to get seconds.
@@ -33,6 +30,13 @@ def t0_fault_free(p: int, n: float, g: int = 1) -> float:
 # Lower bounds
 # ----------------------------------------------------------------------------
 
+def lb_single_straggler(p: int, n: float, ell: float) -> float:
+    """Theorem 1: T >= max{ 2*l*(p-1) / (l*(p-1)+1), l } * n."""
+    if ell < 1.0:
+        raise ValueError("ell >= 1 required")
+    return max(2.0 * ell * (p - 1) / (ell * (p - 1) + 1.0), ell) * n
+
+
 def lb_single_straggler_tight(p: int, n: float, ell: float) -> float:
     """Theorem 6 (tight): T >= max{ 2*l*(p-1) / (l*(p-2)+2), l } * n."""
     if ell < 1.0:
@@ -48,6 +52,12 @@ def lb_multi_straggler(p: int, n: float, ells: Sequence[float]) -> float:
     ell1 = max(ells)
     y0 = 2.0 * (p - 1) / (p - m + sum(1.0 / l for l in ells))
     return max(y0, ell1) * n
+
+
+def lb_multi_gpu(p: int, n: float, ell: float, g: int) -> float:
+    """Theorem 3: T >= (n/g) * max{ 2*l*(q-1)/(1+l*(q-1)), l }, q = p/g."""
+    q = p // g
+    return (n / g) * max(2.0 * ell * (q - 1) / (1.0 + ell * (q - 1)), ell)
 
 
 def lb_multi_gpu_tight(p: int, n: float, ell: float, g: int) -> float:
@@ -70,12 +80,28 @@ def lower_bound(p: int, n: float, ells: Sequence[float], g: int = 1) -> float:
     return lb_multi_straggler(p, n, stragglers)
 
 
+def timeline_lower_bound(profile, timeline, n: float) -> float:
+    """Lower bound for a run under a `FaultTimeline` (core.model).
+
+    Uses the static bound of the per-rank *best-ever* profile
+    (`timeline.min_profile`): the flow model is monotone in the slowdown
+    vector (every flow is pointwise no slower when every rank is at its
+    fastest-ever rate), so the static bound of that profile bounds any
+    schedule under the timeline. Deliberately not an integral/averaged
+    bound - those are not sound when the adversary controls *when* work is
+    scheduled relative to the fault windows.
+    """
+    best = timeline.min_profile(profile)
+    ells = [l for l in best.slowdown if l > 1.0]
+    return lower_bound(best.p, n, ells, best.gpus_per_server)
+
+
 # ----------------------------------------------------------------------------
 # Achieved-time closed forms for OptCC (Section 4.3, Appendices C, D.3, E.4)
 #
 # These are *calibrated* against the repo's flow-model simulator so that
 # Plan.predicted_time is an operator-grade estimate, not just an upper-bound
-# sketch: tests/test_schedule_time.py gates simulated/predicted within 10%
+# sketch: the JAX package's schedule-time tests gate simulated/predicted within 10%
 # at k=4 across every regime. The leading terms are the paper's; the
 # pipeline-head/drain constants are fits to the simulator (the paper's
 # (k+1)/k-style forms count one body of fill where the constructions here
@@ -176,8 +202,8 @@ def optcc_time(p: int, n: float, ells: Sequence[float], k: int,
     stragglers = [l for l in ells if l > 1.0]
     if not stragglers:
         # The FIFO ring generator builds a *flat* p-GPU ring over NICs and
-        # achieves 2(p-1)n/p exactly in the flow model (tests/
-        # test_schedule_time.py pins this). With g > 1 that is a factor g
+        # achieves 2(p-1)n/p exactly in the flow model (the JAX package's
+        # schedule-time tests pin this). With g > 1 that is a factor g
         # above the hierarchical optimum t0_fault_free(p, n, g); predict
         # what the schedule does, not the unimplemented hierarchical ring.
         return t0_fault_free(p, n, 1)
@@ -188,3 +214,112 @@ def optcc_time(p: int, n: float, ells: Sequence[float], k: int,
     if len(stragglers) == 1:
         return optcc_time_single(p, n, stragglers[0], k)
     return optcc_time_multi(p, n, stragglers, k)
+
+
+# ----------------------------------------------------------------------------
+# Per-topology bounds and time models (schedule registry)
+#
+# Unlike the ell-parameterized paper bounds above, these take the full
+# BandwidthProfile: the tree/torus bounds depend on *which* rank is slow
+# (an interior tree rank hurts; a leaf barely does), not just the multiset
+# of slowdowns. Each bound is the port-occupancy argument - a rank's NIC
+# send (resp. recv) port must serialize all bytes it sends (receives),
+# each at >= size * slowdown - evaluated on the exact integer splits the
+# matching generator in `core.topologies` emits, so rounding can never
+# push the bound above the simulated time. The time models are reporting
+# estimates (registry `auto=False` entries never steer `make_plan`).
+# ----------------------------------------------------------------------------
+
+def lb_dbtree(profile, n: float) -> float:
+    """Double binary tree: rank r's NIC moves `dbtree_traffic[r]` in each
+    direction (send == recv), so T >= max_r traffic[r] * l_r."""
+    import numpy as np
+
+    from repro_torch.core.topologies import dbtree_traffic
+    traffic = dbtree_traffic(profile.p, n)
+    return float(np.max(traffic * np.asarray(profile.slowdown)))
+
+
+def dbtree_time(profile, n: float, k: int) -> float:
+    """Traffic bound plus the up-and-down pipeline ramp: ~2 * depth hops of
+    one n/(2k) segment each at the slowest rate."""
+    import math
+    depth = math.ceil(math.log2(profile.p + 1))
+    return (lb_dbtree(profile, n)
+            + 2.0 * depth * (n / (2.0 * max(k, 1))) * max(profile.slowdown))
+
+
+def lb_torus2d(profile, n: float) -> float:
+    """2-D torus: T >= max_r max(send_r, recv_r) * l_r over the exact
+    4-phase traffic of the generator's splits."""
+    import numpy as np
+
+    from repro_torch.core.topologies import torus2d_traffic
+    send, recv = torus2d_traffic(profile.p, n)
+    sl = np.asarray(profile.slowdown)
+    return float(np.max(np.maximum(send, recv) * sl))
+
+
+def torus2d_time(profile, n: float, k: int = 0) -> float:
+    """Sum over the 4 phases of that phase's slowest port (the phases are
+    barrier-separated per chunk, so this always dominates `lb_torus2d`)."""
+    import numpy as np
+
+    from repro_torch.core.topologies import torus2d_traffic
+    sl = np.asarray(profile.slowdown)
+    total = 0.0
+    for send, recv in torus2d_traffic(profile.p, n, per_phase=True):
+        total += float(np.max(np.maximum(send, recv) * sl))
+    return total
+
+
+def _hier_lead_ells(profile) -> list:
+    g = profile.gpus_per_server
+    leads = [profile.slowdown[s * g] for s in range(profile.num_servers)]
+    return [l for l in leads if l > 1.0]
+
+
+def lb_hierarchical(profile, n: float) -> float:
+    """Hierarchical (NVLink reduce per server + inter-server collective over
+    one lead per server): the leads' NICs execute a q-rank AllReduce of the
+    server sums (universal q-rank bound at the leads' *actual* NIC rates),
+    and every non-lead GPU must push its full vector out - and pull the
+    full result back in - over NVLink."""
+    q = profile.num_servers
+    return max(lower_bound(q, n, _hier_lead_ells(profile), 1),
+               n / profile.nvlink_rate)
+
+
+def hierarchical_time(profile, n: float, k: int) -> float:
+    """Inner OptCC/ring prediction on the server-level profile plus the
+    NVLink collect + distribute chains (imperfectly overlapped)."""
+    from repro_torch.core.topologies import server_slowdowns
+    q = profile.num_servers
+    inner_ells = [l for l in server_slowdowns(profile) if l > 1.0]
+    if inner_ells:
+        inner = optcc_time(q, n, inner_ells, k, 1)
+    else:
+        inner = t0_fault_free(q, n, 1)
+    return inner + 2.0 * n / profile.nvlink_rate
+
+
+# ----------------------------------------------------------------------------
+# Asymptotic (k -> inf) versions, for benchmark plots
+# ----------------------------------------------------------------------------
+
+def optcc_time_asymptotic(p: int, n: float, ells: Sequence[float],
+                          g: int = 1) -> float:
+    stragglers = [l for l in ells if l > 1.0]
+    if not stragglers:
+        return t0_fault_free(p, n, g)
+    if g > 1:
+        (ell,) = stragglers
+        return (n / g) * max(ell, 2.0)
+    if len(stragglers) == 1:
+        (ell,) = stragglers
+        if ell >= 2.0:
+            return ell * n
+        return 2.0 * (p - 1) * ell * n / ((p - 2) * ell + 2.0)
+    m = len(stragglers)
+    ell1 = max(stragglers)
+    return max(2.0 * (p - 1) / (p - m), ell1 + 2.0 * (m - 1) / (p - m)) * n

@@ -37,13 +37,28 @@ for mod in ("kernels.chunk_reduce.kernel", "kernels.flash_attention.kernel",
             "checkpoint.ckpt",
             "checkpoint._msgpack", "comms.transport", "comms.dist",
             "comms.parity", "sharding", "models.shardctx", "launch.mesh",
-            "train.step"):
+            "train.step", "core.ring", "core.schedule", "core.schedule_vec",
+            "core.topologies", "core.baselines", "core.registry",
+            "core.flowvec", "core.simulator", "core.executor", "obs",
+            "obs.telemetry", "obs.critical_path", "obs.trace", "detect",
+            "detect.detector", "detect.controller"):
     assert "repro_torch." + mod in names, mod
 from repro_torch.train import (batch_spec, make_gspmd_train_step,
                                param_pspec, shardings_for_params)
 from repro_torch.configs import SHAPES, cell_is_applicable
 from repro_torch.launch.mesh import cache_specs, input_specs
 from repro_torch.models.shardctx import constrain_batch
+from repro_torch.core import BandwidthProfile, make_plan, simulate
+from repro_torch.core.model import FaultTimeline
+from repro_torch.core.planner import replay
+from repro_torch.detect import ControllerConfig, DetectorConfig
+prof = BandwidthProfile.single_straggler(8, 2.0, 3)
+res = simulate(make_plan(prof, 1001, 4).schedule, telemetry=True)
+assert res.telemetry is not None
+tl = FaultTimeline.make([(100.0, 3, 1.0), (400.0, 5, 3.0)])
+rep = replay(prof, 1001, tl, k=4, detector=DetectorConfig.default(500.0),
+             controller=ControllerConfig(policy="debounce"))
+assert rep.detection is not None
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

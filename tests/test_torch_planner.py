@@ -5,7 +5,14 @@ import pytest
 pytest.importorskip("torch")
 
 from repro.comms import fault as jax_fault  # noqa: E402
+from repro.core import model as jax_model  # noqa: E402
+from repro.core import registry as jax_registry  # noqa: E402
+from repro.core.planner import make_plan as jax_make_plan  # noqa: E402
 from repro_torch.comms import fault  # noqa: E402
+from repro_torch.core import model  # noqa: E402
+from repro_torch.core.planner import make_plan  # noqa: E402
+from test_torch_flow_grid import (PROFILES, outcome,  # noqa: E402
+                                  assert_plan_equal, profile_of)
 
 ELLS = (1.0, 1.25, 1.5, 2.0, 3.0)
 NS = (1000, int(1.7e9))
@@ -51,7 +58,33 @@ def test_nic_loss_events_equal_jax():
             jax_fault.FaultAwareSync(cur_r).grad_sync_kind()
 
 
-def test_make_plan_rejects_unported_algo():
-    with pytest.raises(ValueError):
-        from repro_torch.core.planner import make_plan
-        make_plan(fault.FaultState(4).profile(), 1000, algo="dbtree")
+@pytest.mark.parametrize("name", jax_registry.names())
+def test_make_plan_every_registry_name_equals_jax(name):
+    """make_plan(algo=name) for every registered name on the profile grid
+    (descriptor-only plans; tests/test_torch_schedules.py holds the
+    materialized ones): equal plans, or the same error where the JAX
+    package refuses the profile."""
+    for spec in PROFILES:
+        for n in NS:
+            for k in (1, 16):
+                want = outcome(jax_make_plan, profile_of(jax_model, spec), n,
+                             k, materialize=False, algo=name)
+                got = outcome(make_plan, profile_of(model, spec), n, k,
+                            materialize=False, algo=name)
+                assert_plan_equal(got, want)
+
+
+def test_make_plan_refuses_what_jax_refuses():
+    """An unknown name, and a registered one on a profile it does not
+    support, raise ValueError with the JAX package's message."""
+    cases = (("nope", ("healthy", (4,))),
+             ("hierarchical", ("single", (8, 2.0, 1))),
+             ("torus2d", ("single", (5, 1.5, 2))),
+             ("torus2d", ("gpu", (16, 4, None))),
+             ("dbtree", ("gpu", (8, 2, 12.0))))
+    for name, spec in cases:
+        with pytest.raises(ValueError) as ours:
+            make_plan(profile_of(model, spec), 1000, algo=name)
+        with pytest.raises(ValueError) as ref:
+            jax_make_plan(profile_of(jax_model, spec), 1000, algo=name)
+        assert str(ours.value) == str(ref.value)

@@ -1,28 +1,21 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's two GSPMD-step phases alone, on one card, and the probe
-that sized the second.
+"""The probe that sized chip_smoke.py's `train_gspmd_remat` phase, on one
+card.
 
-    python3 tools/gspmd_phases.py [--probe B:S ...] [--no-phases]
+    python3 tools/gspmd_phases.py --probe B:S [B:S ...]
 
-Runs `phase_train_gspmd_minicpm` (minicpm-2b at full width and depth,
-remat="full", 4 microbatches of 2 x 4096 tokens, 3 steps) and
-`phase_train_gspmd_remat` (qwen3-1.7b: remat none / full / dots at
-GSPMD_REMAT's batch and sequence, then 16 x 4096 as 8 microbatches),
-printing their JSON lines and seconds. No kernel is on these paths, so
-nothing is built.
-
---probe B:S ... first runs one step of qwen3-1.7b at full width and depth
-(one microbatch) at each (batch, sequence) with each remat, from the same
-init, and prints its peak GiB and seconds, or "oom" where the card's
-memory ran out, a JSON line each: the largest point at which
-remat="none" fits is GSPMD_REMAT's.
+Runs one step of qwen3-1.7b at full width and depth (one microbatch) at
+each (batch, sequence) with each remat, from the same init, and prints its
+peak GiB and seconds, or "oom" where the card's memory ran out, a JSON line
+each: the largest point at which remat="none" fits with room to spare is
+GSPMD_REMAT's. The two GSPMD phases themselves run alone with
+`python3 chip_smoke.py --phases train_gspmd_minicpm train_gspmd_remat`.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -54,8 +47,7 @@ def probe(torch, cs, dev, points) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--probe", nargs="*", default=[], metavar="B:S")
-    ap.add_argument("--no-phases", action="store_true")
+    ap.add_argument("--probe", nargs="+", required=True, metavar="B:S")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import torch
@@ -64,25 +56,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("gspmd_phases: needs a CUDA card", file=sys.stderr)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
+    print(cs._smi(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
     points = [tuple(int(x) for x in p.split(":")) for p in args.probe]
-    if points:
-        t = time.perf_counter()
-        probe(torch, cs, dev, points)
-        print(f"probe {time.perf_counter() - t:.2f} s", flush=True)
-    if args.no_phases:
-        return 0
-    for name, run in (("train_gspmd_minicpm", cs.phase_train_gspmd_minicpm),
-                      ("train_gspmd_remat", cs.phase_train_gspmd_remat)):
-        t = time.perf_counter()
-        launches = run(torch, dev)
-        print(f"{name} {time.perf_counter() - t:.2f} s, launches "
-              f"{launches}", flush=True)
+    t = time.perf_counter()
+    probe(torch, cs, torch.device("cuda"), points)
+    print(f"probe {time.perf_counter() - t:.2f} s", flush=True)
     return 0
 
 

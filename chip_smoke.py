@@ -74,6 +74,22 @@ phases, each printing one JSON line:
                  count, 1,720,574,976 bf16 elements) at p = 4 with straggler 0 at l = 1.5, through the ring
                  the runtime's FaultState plans and through OptCC. No
                  kernel is on this path (three JSON lines);
+  sweeps       - the fault-scenario sweeps on the host: `python -m
+                 repro_torch.sweeps --smoke --telemetry --deterministic`
+                 with 0 and 8 worker processes, the two artifacts
+                 byte-equal and hashing to the JAX package's artifact
+                 (SWEEP_SHA256), `check` against ci/sweep_thresholds.json;
+                 then one measured run: generation p99 and the re-planning
+                 latency at p = 1024 beside the thresholds' 1 ms limit
+                 (reported, not gated);
+  dryrun       - `repro_torch.launch.dryrun.run_cell` on qwen3-1.7b's
+                 cells and both production meshes (seconds a cell); then
+                 qwen3-1.7b's GSPMD step at GSPMD_REMAT's 6 x 1024 with
+                 remat none and full, run on the card under
+                 torch.utils.flop_counter and traced on `meta`: the two
+                 FLOP counts equal, and the trace's peak live bytes
+                 within a factor of 2 of the card's max_memory_allocated.
+                 No kernel is launched on this path;
   dist_collectives - the process transport: four processes on the card
                  over gloo, hops staged through pinned host memory. psum
                  (bf16) and optcc_allreduce_tree (fp32, straggler 1) at the
@@ -352,6 +368,21 @@ SCHEDULE_CARD = (("single", 8, 2.0, 0), ("multi", 16, (2.0, 1.5)),
 SCHEDULE_FULL_N, SCHEDULE_SMALL_N = 2 ** 25 + 1, 2 ** 20 + 1
 SCHEDULE_SLICE = 1 << 26     # elements per slice of the fp64 check
 UNIT_ROUNDOFF = {"float32": 2.0 ** -24, "bfloat16": 2.0 ** -8}
+# the fault-scenario sweeps (phase_sweeps): the sha256 of the JAX package's
+# `python -m repro.sweeps --smoke --telemetry --deterministic` artifact
+# (seed 0), which tests/test_torch_sweeps.py pins too; the CI thresholds
+SWEEP_SHA256 = \
+    "b071e366dd80c2d29a9420cf72d0afca1081fa53deea6ada8641c4643b25049d"
+SWEEP_ARGS = ["--smoke", "--telemetry"]
+SWEEP_WORKERS = (0, 8)
+SWEEP_THRESHOLDS = "ci/sweep_thresholds.json"
+# the dry run (phase_dryrun): qwen3-1.7b's cells on both meshes, and its
+# GSPMD step at GSPMD_REMAT's shape counted on `meta` against the card;
+# the trace's peak live bytes over max_memory_allocated must lie in
+# DRYRUN_PEAK_RATIO
+DRYRUN_ARCH = "qwen3-1.7b"
+DRYRUN_REMATS = ("none", "full")
+DRYRUN_PEAK_RATIO = (0.5, 2.0)
 
 
 def emit(obj: dict) -> None:
@@ -392,8 +423,11 @@ ALONE = {
         torch, dev),
     "train_gspmd_remat": lambda torch, dev: phase_train_gspmd_remat(
         torch, dev),
+    "sweeps": lambda torch, dev: phase_sweeps(),
+    "dryrun": lambda torch, dev: phase_dryrun(torch, dev),
 }
-KERNEL_FREE = ("schedules", "train_gspmd_minicpm", "train_gspmd_remat")
+KERNEL_FREE = ("schedules", "train_gspmd_minicpm", "train_gspmd_remat",
+               "sweeps", "dryrun")
 
 
 def run_alone(torch, dev, names: list) -> int:
@@ -465,6 +499,8 @@ def main() -> int:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     del main_run
     phase_schedules(torch, dev, n_grad)
+    phase_sweeps()
+    phase_dryrun(torch, dev)
     _add(launches, phase_dist_collectives(torch, dev, n_grad))
     _add(launches, phase_main_path_dist(torch, dev))
     n_internlm2, internlm2_launches = phase_main_path_arch(
@@ -1288,6 +1324,202 @@ def phase_schedules(torch, dev, n_grad: int) -> None:
     emit({"phase": "schedules_qwen3", "arch": "qwen3-1.7b", "p": 4,
           "straggler": 0, "ell": 1.5, "runs": rows,
           "seconds": time.perf_counter() - t})
+
+
+def _sweep(args: list, cwd: str) -> tuple:
+    """`python -m repro_torch.sweeps ARGS` in its own process (its workers
+    fork from a process that never touched the card): (seconds, its
+    output)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.sweeps",
+                           *args], capture_output=True, text=True, env=env,
+                          cwd=cwd, timeout=600)
+    seconds = time.perf_counter() - t
+    require(proc.returncode == 0, f"sweeps {args}: exit {proc.returncode}\n"
+            + proc.stdout[-2000:] + proc.stderr[-2000:])
+    return seconds, proc.stdout
+
+
+def phase_sweeps() -> None:
+    """The fault-scenario sweeps on the host (numpy; no card work): the
+    deterministic smoke artifact with telemetry from SWEEP_WORKERS worker
+    processes, byte-equal and hashing to the JAX package's (SWEEP_SHA256),
+    checked against SWEEP_THRESHOLDS; then a measured run's generation p99
+    and re-planning latency at p = 1024 beside the thresholds' limit."""
+    import hashlib
+    t_phase = time.perf_counter()
+    thresholds = str(ROOT / SWEEP_THRESHOLDS)
+    with open(thresholds) as f:
+        limit_ms = json.load(f)["schedgen_latency_ms_max"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        blobs = []
+        for workers in SWEEP_WORKERS:
+            out = os.path.join(tmp, f"w{workers}.json")
+            seconds, _ = _sweep(SWEEP_ARGS + ["--deterministic", "--workers",
+                                              str(workers), "--out", out],
+                                tmp)
+            with open(out, "rb") as f:
+                blobs.append(f.read())
+            runs[f"workers_{workers}"] = {"seconds": seconds}
+        require(all(b == blobs[0] for b in blobs),
+                f"sweep artifacts differ across workers {SWEEP_WORKERS}")
+        digest = hashlib.sha256(blobs[0]).hexdigest()
+        require(digest == SWEEP_SHA256,
+                f"sweep artifact sha256 {digest} is not the JAX package's "
+                f"{SWEEP_SHA256}")
+        seconds, checked = _sweep(["check", os.path.join(tmp, "w0.json"),
+                                   "--thresholds", thresholds], tmp)
+        runs["check"] = {"seconds": seconds,
+                         "output": checked.strip().splitlines()}
+        out = os.path.join(tmp, "measured.json")
+        seconds, _ = _sweep(SWEEP_ARGS + ["--workers",
+                                          str(max(SWEEP_WORKERS)), "--out",
+                                          out], tmp)
+        with open(out) as f:
+            measured = json.load(f)
+    overall = measured["summary"]["overall"]
+    latency = measured["schedgen_latency_ms"]
+    emit({"phase": "sweeps", "cpu": _host_cpu(),
+          "scenarios": measured["scenario_count"],
+          "schema": measured["schema"], "sha256": digest,
+          "sha256_is_jax": True, "deterministic": runs,
+          "measured": {"seconds": seconds, "workers": max(SWEEP_WORKERS),
+                       "gen_ms_p50": overall["gen_ms_p50"],
+                       "gen_ms_p99": overall["gen_ms_p99"],
+                       "schedgen_latency_ms_p1024": latency,
+                       "limit_ms": limit_ms,
+                       "within_limit": latency <= limit_ms,
+                       "overhead_optcc_p99": overall["overhead_optcc_p99"]},
+          "seconds": time.perf_counter() - t_phase})
+
+
+def _dryrun_cells() -> tuple:
+    """`run_cell` on DRYRUN_ARCH's cells, both meshes, into a temporary
+    directory: (one summary a cell, `roofline.report`'s tables of the
+    records, by mesh)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import report
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for mesh in ("single", "multi"):
+            for shape in SHAPES:
+                t = time.perf_counter()
+                rec = dryrun.run_cell(DRYRUN_ARCH, shape, mesh, force=True,
+                                      out_dir=tmp)
+                row = {"shape": shape.name, "mesh": mesh,
+                       "status": rec["status"],
+                       "seconds": time.perf_counter() - t}
+                require(rec["status"] in ("ok", "skipped"),
+                        f"dry run {shape.name} {mesh}: {rec.get('error')}")
+                if rec["status"] == "ok":
+                    r = rec["roofline"]
+                    row.update({
+                        "trace_s": rec["timings"]["trace_s"],
+                        "trace_reused": rec["timings"]["trace_reused"],
+                        "flops": rec["op_count"]["flops"],
+                        "hbm_bytes": rec["op_count"]["hbm_bytes"],
+                        "peak_live_bytes":
+                            rec["memory_analysis"]["peak_live_bytes"],
+                        "model_flops": r["model_flops"],
+                        "t_compute_s": r["t_compute_s"],
+                        "t_memory_s": r["t_memory_s"],
+                        "dominant": r["dominant"],
+                        "useful_flops_fraction": r["useful_flops_fraction"],
+                        "info": rec["info"]})
+                rows.append(row)
+        tables = {mesh: {"roofline": report.table(mesh, out_dir=tmp)
+                         .splitlines(),
+                         "memory": report.memory_table(mesh, out_dir=tmp)
+                         .splitlines()} for mesh in ("single", "multi")}
+    return rows, tables
+
+
+def _dryrun_step(torch, dev, remat: str, batch: dict) -> dict:
+    """qwen3-1.7b's GSPMD step (one microbatch) on the card under
+    torch.utils.flop_counter, and the same step traced on `meta`
+    (roofline.op_count): both FLOP counts, the card's peak allocated bytes
+    and the trace's peak live bytes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import meta_params
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.optim.schedules import constant
+    from repro_torch.roofline.op_count import analyze_program, meta_like
+    from repro_torch.sharding import Mesh
+    from repro_torch.train import (TrainState, init_train_state,
+                                   make_gspmd_train_step)
+    cfg = get_config(DRYRUN_ARCH).replace(remat=remat)
+    model = build_model(cfg)
+    step = make_gspmd_train_step(model, Mesh((1,), ("data",)), AdamWConfig(),
+                                 constant(GSPMD_REMAT["lr"]))
+    t = time.perf_counter()
+    params = meta_params(cfg)
+    count, _ = analyze_program(
+        step, TrainState(params, init_state(params, AdamWConfig()), 0),
+        meta_like(batch))
+    trace_s = time.perf_counter() - t
+    state = init_train_state(model, AdamWConfig(), GSPMD_SEED, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter = FlopCounterMode(display=False)
+    t = time.perf_counter()
+    with counter:
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    require(math.isfinite(float(m["loss"])), f"remat={remat}: loss "
+            f"{float(m['loss'])}")
+    del state
+    torch.cuda.empty_cache()
+    card_flops = counter.get_total_flops()
+    ratio = count.peak_live_bytes / peak
+    row = {"remat": remat, "meta_flops": count.flops,
+           "flop_counter_flops": card_flops,
+           "flops_equal": count.flops == card_flops,
+           "peak_live_gib": count.peak_live_bytes / 2 ** 30,
+           "max_allocated_gib": peak / 2 ** 30, "peak_ratio": ratio,
+           "hbm_bytes": count.hbm_bytes, "trace_s": trace_s,
+           "step_seconds": seconds}
+    require(row["flops_equal"], f"remat={remat}: meta FLOPs {count.flops} "
+            f"!= the card's flop counter's {card_flops}")
+    require(DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1],
+            f"remat={remat}: peak live {count.peak_live_bytes} over max "
+            f"allocated {peak} = {ratio}")
+    return row
+
+
+def phase_dryrun(torch, dev) -> None:
+    """The dry run: DRYRUN_ARCH's cells (`_dryrun_cells`), then its step
+    at GSPMD_REMAT's shape with each of DRYRUN_REMATS, counted on `meta`
+    and run on the card (`_dryrun_step`). The launch counts are set to 0
+    before and must stay 0: the training step has no kernel, and on
+    `meta` a kernel only records its work."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    t = time.perf_counter()
+    cells, tables = _dryrun_cells()
+    cells_seconds = time.perf_counter() - t
+    cfg = get_config(DRYRUN_ARCH)
+    batch = _gspmd_batches(torch, dev, cfg, GSPMD_REMAT["batch"],
+                           GSPMD_REMAT["seq_len"], 1, GSPMD_SEED)[0]
+    steps = [_dryrun_step(torch, dev, remat, batch)
+             for remat in DRYRUN_REMATS]
+    launches = launch_counts()
+    require(not any(launches.values()),
+            f"the dry run launched kernels of the port: {launches}")
+    emit({"phase": "dryrun", "arch": DRYRUN_ARCH, "cells": cells,
+          "cells_seconds": cells_seconds, "report": tables,
+          "step": {"batch": GSPMD_REMAT["batch"],
+                   "seq_len": GSPMD_REMAT["seq_len"], "runs": steps},
+          "seconds": time.perf_counter() - t_phase})
 
 
 def _hop_lines(hops: list) -> list:
@@ -2800,11 +3032,7 @@ def _staged_pair_timing(torch, gen, dev, n_grad: int, errs) -> dict:
     return res
 
 
-def _nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def _flash_timing(torch, q, k, v, out, *, route: str, q_offset: int,
+def _flash_timing(torch, q, k, v, *, route: str, q_offset: int,
                   kv_len: int, causal: bool, iters: int,
                   window: int = 0) -> dict:
     """One flash route at one shape: kernel, plain version, SDPA (the
@@ -2828,14 +3056,7 @@ def _flash_timing(torch, q, k, v, out, *, route: str, q_offset: int,
         ok = jk > iq - window
         sdpa = dict(attn_mask=ok & (jk <= iq) if causal else ok,
                     enable_gqa=True)
-    pairs = 0
-    for i in range(Sq):
-        iq = q_offset + i
-        hi = min(kv_len, iq + 1) if causal else kv_len
-        lo = max(0, iq - window + 1) if window > 0 else 0
-        pairs += max(0, hi - lo)
-    flops = 4 * hd * H * B * pairs
-    nbytes = _nbytes(q, kk, vv, out)
+    flops, nbytes = kernel.work(q, k, v, **kw)
     if q.dtype == torch.bfloat16:
         bound = _bound(nbytes, flops, BF16_FLOPS)
     else:
@@ -2866,27 +3087,26 @@ def _timed_call(torch, errs, what, q, k, v, *, route: str, causal: bool,
     errs[route] = max(errs[route], _compare(
         torch, out, ref.flash_attention_ref(q, k, v, **kw), f"timed {what}",
         FLASH_TOL["float32"], ulp=True))
-    res = _flash_timing(torch, q, k, v, out, route=route, iters=iters, **kw)
+    res = _flash_timing(torch, q, k, v, route=route, iters=iters, **kw)
     torch.cuda.empty_cache()
     return res
 
 
-def _wkv_timing(torch, x, state0, out, iters: int) -> dict:
+def _wkv_timing(torch, x, state0, iters: int) -> dict:
     """wkv at one shape: kernel (CUDA events over back-to-back calls of the
     op, host included, and its device time), plain version, no library call
     (no one PyTorch call computes the recurrence), and the bound: r, k, v,
     w, u, state0 in and out and the final state; 7 fp32 flops per state
     element per token."""
-    from repro_torch.kernels.wkv import ops, ref
+    from repro_torch.kernels.wkv import kernel, ops, ref
     B, S, H, hd = x[0].shape
-    inputs = list(x) + ([state0] if state0 is not None else [])
     return {
         "ms": _cuda_ms(torch, lambda: ops.wkv(*x, state0), iters),
         "device_ms": _device_ms(torch, lambda: ops.wkv(*x, state0),
                                 min(iters, 10), "wkv"),
         "plain_ms": _cuda_ms(torch, lambda: ref.wkv_ref(*x, state0), 1,
                              warmup=1),
-        **_bound(_nbytes(*inputs, *out), 7 * hd * hd * B * H * S),
+        **_bound(*reversed(kernel.work(*x, state0))),
         "library_ms": None,
         "shape": [B, S, H, hd], "state0": state0 is not None,
         "dtype": "float32"}
@@ -2939,7 +3159,7 @@ def phase_serve_timing(torch, dev, errs) -> dict:
         errs[route] = max(errs[route], _compare(
             torch, out, fref.flash_attention_ref(q, k, v),
             f"timed prefill {name}", FLASH_TOL["float32"], ulp=True))
-        res[name] = _flash_timing(torch, q, k, v, out, route=route,
+        res[name] = _flash_timing(torch, q, k, v, route=route,
                                   q_offset=0, kv_len=S, causal=True,
                                   iters=iters)
         del q, k, v, out
@@ -2954,7 +3174,7 @@ def phase_serve_timing(torch, dev, errs) -> dict:
                                              kv_len=pos + 1),
         "timed decode", FLASH_TOL["float32"], ulp=True))
     res["flash_decode"] = _flash_timing(
-        torch, q, kc, vc, out, route="flash_decode", q_offset=pos,
+        torch, q, kc, vc, route="flash_decode", q_offset=pos,
         kv_len=pos + 1, causal=True, iters=200)
     del kc, vc, q, out
     torch.cuda.empty_cache()
@@ -2969,7 +3189,7 @@ def phase_serve_timing(torch, dev, errs) -> dict:
         torch, out, fref.flash_attention_ref(q, k, v, window=w),
         "timed gemma3 local prefill", FLASH_TOL["float32"], ulp=True))
     res["gemma3_local_prefill"] = _flash_timing(
-        torch, q, k, v, out, route="flash_prefill", q_offset=0, kv_len=Sg,
+        torch, q, k, v, route="flash_prefill", q_offset=0, kv_len=Sg,
         causal=True, iters=20, window=w)
     del q, k, v, out
     torch.cuda.empty_cache()
@@ -2981,7 +3201,7 @@ def phase_serve_timing(torch, dev, errs) -> dict:
                                              causal=False),
         "timed gemma3 ring decode", FLASH_TOL["float32"], ulp=True))
     res["gemma3_ring_decode"] = _flash_timing(
-        torch, q, ring_k, ring_v, out, route="flash_decode", q_offset=0,
+        torch, q, ring_k, ring_v, route="flash_decode", q_offset=0,
         kv_len=w, causal=False, iters=200)
     del ring_k, ring_v, q, out
     torch.cuda.empty_cache()
@@ -3000,7 +3220,7 @@ def phase_serve_timing(torch, dev, errs) -> dict:
             torch, out, fref.flash_attention_ref(q, k, v),
             f"timed {tag} prefill", FLASH_TOL["float32"], ulp=True))
         res[f"{tag}_prefill"] = _flash_timing(
-            torch, q, k, v, out, route="flash_prefill", q_offset=0,
+            torch, q, k, v, route="flash_prefill", q_offset=0,
             kv_len=Sm, causal=True, iters=20)
         del q, k, v, out
         torch.cuda.empty_cache()
@@ -3014,7 +3234,7 @@ def phase_serve_timing(torch, dev, errs) -> dict:
                                                  kv_len=pos + 1),
             f"timed {tag} decode", FLASH_TOL["float32"], ulp=True))
         res[f"{tag}_decode"] = _flash_timing(
-            torch, q, kc, vc, out, route="flash_decode", q_offset=pos,
+            torch, q, kc, vc, route="flash_decode", q_offset=pos,
             kv_len=pos + 1, causal=True, iters=200)
         res[f"{tag}_decode"]["decode_splits"] = fkernel.decode_splits(
             pos + 1, Bm * KVm, sms)
@@ -3037,7 +3257,7 @@ def phase_serve_timing(torch, dev, errs) -> dict:
         torch, out, fref.flash_attention_ref(q, k, v, window=w),
         "timed hymba prefill", FLASH_TOL["float32"], ulp=True))
     res["hymba_prefill"] = _flash_timing(
-        torch, q, k, v, out, route="flash_prefill", q_offset=0, kv_len=Sh,
+        torch, q, k, v, route="flash_prefill", q_offset=0, kv_len=Sh,
         causal=True, iters=20, window=w)
     del q, k, v, out
     torch.cuda.empty_cache()
@@ -3097,11 +3317,10 @@ def phase_serve_timing(torch, dev, errs) -> dict:
     for g, w, part in zip(out, wref.wkv_ref(*x), ("out", "state")):
         errs["wkv"] = max(errs["wkv"], _compare(
             torch, g, w, f"timed prefill {part}", WKV_TOL))
-    res["wkv"] = _wkv_timing(torch, x, None, out, iters=10)
+    res["wkv"] = _wkv_timing(torch, x, None, iters=10)
     x1 = _wkv_inputs(torch, gen, dev, Bw, 1, Hw, hdw)
     state0 = out[1]
-    res["wkv_decode"] = _wkv_timing(torch, x1, state0, wops.wkv(*x1, state0),
-                                    iters=50)
+    res["wkv_decode"] = _wkv_timing(torch, x1, state0, iters=50)
     del x, x1, out, state0
     # the decode step as serving finds it: a layer's state was last touched
     # 31 layers ago, so rotate over 16 sets of inputs and states (72 MB of

@@ -23,7 +23,6 @@ from repro_torch.core import lower_bounds, registry
 from repro_torch.core.baselines import (iccl_time_asymptotic,
                                         iccl_time_simulated,
                                         nccl_no_failure_time, r2ccl_time)
-from repro_torch.core.executor import execute, verify_allreduce
 from repro_torch.core.model import (BandwidthProfile, Flow, Op, Schedule,
                                     validate_schedule_meta)
 from repro_torch.core.planner import Plan, make_plan, topology_of
@@ -37,3 +36,12 @@ __all__ = [
     "nccl_no_failure_time", "iccl_time_asymptotic", "iccl_time_simulated",
     "r2ccl_time",
 ]
+
+
+def __getattr__(name: str):
+    # the executor is core's one torch module: loaded when first asked for,
+    # so the numpy users (planner, simulator, sweeps) start without torch
+    if name in ("execute", "verify_allreduce"):
+        from repro_torch.core import executor
+        return getattr(executor, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

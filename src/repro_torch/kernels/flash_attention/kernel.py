@@ -134,6 +134,24 @@ def seen_keys(Sq: int, kv_len: int, *, causal: bool, window: int,
     return lo, hi
 
 
+def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+         window: int, q_offset: int, kv_len: int) -> tuple[int, int]:
+    """(flops, bytes) of one call, whichever route takes it: 4 hd flops per
+    visible (query row, key) pair and query head; q, the first kv_len keys
+    and values read once and the output (q's shape and dtype) written once.
+    The rule of chip_smoke.py's bounds and of the dry run's count
+    (`roofline.op_count`); reads only shapes and dtypes."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    iq = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(kv_len, iq + 1) if causal else np.full(Sq, kv_len)
+    lo = np.maximum(0, iq - window + 1) if window > 0 else 0
+    pairs = int(np.maximum(0, hi - lo).sum())
+    nbytes = 2 * q.numel() * q.element_size() \
+        + B * kv_len * KV * hd * (k.element_size() + v.element_size())
+    return 4 * hd * H * B * pairs, nbytes
+
+
 def decode_splits(n_keys: int, groups: int, sms: int) -> int:
     """How many CTAs share the keys of one (b, kv head) group in
     flash_decode: enough for DECODE_CTAS_PER_SM CTAs per SM over all

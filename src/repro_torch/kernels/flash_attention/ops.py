@@ -1,6 +1,7 @@
 """Public flash_attention op: a CUDA kernel for CUDA tensors (which of the
 three, `kernel.flash_attention_cuda` decides by `kernel.route`), the plain
-PyTorch version for CPU tensors, an error for anything else.
+PyTorch version for CPU tensors, on `meta` tensors only the count of the
+kernel's work (the dry run), an error for anything else.
 
 Forward only: there is no backward kernel yet, so an input that requires
 grad is refused (training keeps `models/attention.attention`)."""
@@ -11,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import kernel, ref
+from repro_torch.roofline import op_count
 
 
 def check_rows_see_a_key(Sq: int, kv_len: int, *, causal: bool,
@@ -55,4 +57,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset, kv_len=kv_len)
-    raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.is_meta:
+        # the dry run: the work of the kernel the card would launch, no
+        # arithmetic (roofline.op_count)
+        op_count.record(kernel.pick_route(q, k, v), *kernel.work(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            kv_len=kv_len))
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
+    raise ValueError(f"flash_attention runs on cuda, cpu or meta, not "
+                     f"{q.device}")

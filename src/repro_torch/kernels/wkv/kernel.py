@@ -40,6 +40,21 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def work(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state0: Optional[torch.Tensor] = None
+         ) -> tuple[int, int]:
+    """(flops, bytes) of one call: 7 fp32 flops per state element per token
+    (kv, u kv, the read-out's multiply-add, the decay's multiply-add); r,
+    k, v, w, u and state0 read once, the output and the final state (fp32)
+    written once. The rule of chip_smoke.py's bound and of the dry run's
+    count (`roofline.op_count`); reads only shapes and dtypes."""
+    B, S, H, hd = r.shape
+    ins = [r, k, v, w, u] + ([state0] if state0 is not None else [])
+    nbytes = sum(t.numel() * t.element_size() for t in ins) \
+        + 4 * (B * S * H * hd + B * H * hd * hd)
+    return 7 * hd * hd * B * H * S, nbytes
+
+
 @functools.cache
 def _entry():
     """The C entry point wkv_fwd, typed once: 8 pointers, B, S, H, hd,

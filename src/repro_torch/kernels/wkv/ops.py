@@ -1,5 +1,6 @@
 """Public wkv op: the CUDA kernel for CUDA tensors, the plain PyTorch
-version for CPU tensors, an error for anything else."""
+version for CPU tensors, on `meta` tensors only the count of the kernel's
+work (the dry run), an error for anything else."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,6 +8,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.wkv import kernel, ref
+from repro_torch.roofline import op_count
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -26,4 +28,10 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         return kernel.wkv_cuda(r, k, v, w, u, state0)
     if r.device.type == "cpu":
         return ref.wkv_ref(r, k, v, w, u, state0)
-    raise ValueError(f"wkv runs on cuda or cpu, not {r.device}")
+    if r.is_meta:
+        # the dry run: the kernel's work, no arithmetic (roofline.op_count)
+        op_count.record("wkv", *kernel.work(r, k, v, w, u, state0))
+        B, S, H, hd = r.shape
+        return (torch.empty((B, S, H, hd), device="meta"),
+                torch.empty((B, H, hd, hd), device="meta"))
+    raise ValueError(f"wkv runs on cuda, cpu or meta, not {r.device}")

@@ -168,8 +168,14 @@ def test_op_refuses_what_it_does_not_run():
         ops.flash_attention(q, k, v, causal=True, q_offset=-1)
     with pytest.raises(ValueError, match="kv_len"):
         ops.flash_attention(q, k, v, kv_len=9)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    # meta only counts the kernel's work (the dry run); other devices raise
+    assert ops.flash_attention(q.to("meta"), k.to("meta"),
+                               v.to("meta")).is_meta
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(), pytest.raises(ValueError, match="cuda, cpu or "
+                                                         "meta"):
+        ops.flash_attention(*(torch.empty(t.shape, device="xpu")
+                              for t in (q, k, v)))
     with pytest.raises(ValueError, match="CUDA"):
         kernel.flash_attention_cuda(q, k, v, causal=True, window=0,
                                     q_offset=0, kv_len=8)

@@ -41,7 +41,11 @@ for mod in ("kernels.chunk_reduce.kernel", "kernels.flash_attention.kernel",
             "core.topologies", "core.baselines", "core.registry",
             "core.flowvec", "core.simulator", "core.executor", "obs",
             "obs.telemetry", "obs.critical_path", "obs.trace", "detect",
-            "detect.detector", "detect.controller"):
+            "detect.detector", "detect.controller", "sweeps",
+            "sweeps.__main__", "sweeps.artifact", "sweeps.cli",
+            "sweeps.engine", "sweeps.scenarios", "sweeps.stats", "roofline",
+            "roofline.analysis", "roofline.op_count", "roofline.report",
+            "launch.dryrun"):
     assert "repro_torch." + mod in names, mod
 from repro_torch.train import (batch_spec, make_gspmd_train_step,
                                param_pspec, shardings_for_params)
@@ -59,6 +63,8 @@ tl = FaultTimeline.make([(100.0, 3, 1.0), (400.0, 5, 3.0)])
 rep = replay(prof, 1001, tl, k=4, detector=DetectorConfig.default(500.0),
              controller=ControllerConfig(policy="debounce"))
 assert rep.detection is not None
+from repro_torch.sweeps import run_sweep, smoke_grid
+assert run_sweep(smoke_grid(0)[:3], workers=0, measure_latency=False)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -118,9 +124,12 @@ def test_spawned_ranks_import_no_jax():
 
 
 def test_resolve_device_never_falls_back():
+    """cpu and cuda as asked; meta (the dry run's count) only when named,
+    never as a default; any other device type raises."""
     assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device("meta") == torch.device("meta")
     with pytest.raises(ValueError):
-        resolve_device("meta")
+        resolve_device("xpu")
     if torch.cuda.is_available():
         assert resolve_device("cuda").type == "cuda"
     else:

@@ -113,8 +113,13 @@ def test_op_refuses_what_it_does_not_run():
     with pytest.raises(RuntimeError, match="backward"):
         ops.wkv(r.requires_grad_(), k, v, w, u)
     r = r.detach()
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        ops.wkv(*(t.to("meta") for t in (r, k, v, w, u)))
+    # meta only counts the kernel's work (the dry run); other devices raise
+    assert ops.wkv(*(t.to("meta") for t in (r, k, v, w, u)))[0].is_meta
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(), pytest.raises(ValueError, match="cuda, cpu or "
+                                                         "meta"):
+        ops.wkv(*(torch.empty(t.shape, device="xpu")
+                  for t in (r, k, v, w, u)))
     with pytest.raises(ValueError, match="CUDA"):
         kernel.wkv_cuda(r, k, v, w, u)
 
